@@ -1,0 +1,82 @@
+"""Attention dispatch: the one entry point for all attention in the port.
+
+Routing follows the KV and query lengths, with the thresholds of the JAX
+package (``motion324_tpu/ops/attention.py``):
+
+- KV >= 1024: K1, the flash kernel (online softmax over KV tiles);
+- 128 <= KV < 1024 and Sq >= 128: K2, the head-folded kernel, when the
+  padded logit tile (Sq to 16s, KV to 128s) is at most 512 x 512, else K1;
+- otherwise (tiny KV, e.g. decoding points against 64 mesh tokens): plain
+  PyTorch.
+
+A kernel route on a CUDA tensor launches the kernel; on a CPU tensor the
+kernel's wrapper computes its plain version. ``backend="plain"`` forces the
+plain path, for comparisons.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from motion324_tpu_torch.ops.flash_attention import flash_attention
+from motion324_tpu_torch.ops.folded_attention import folded_attention
+
+__all__ = ["multi_head_attention", "mha_reference", "select_route"]
+
+FLASH_MIN_KV = 1024
+SHORT_MIN_KV = 128
+SHORT_MIN_Q = 128
+SHORT_MAX_AREA = 512 * 512
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def select_route(sq: int, sk: int) -> str:
+    """``"flash"``, ``"folded"`` or ``"plain"`` for query/KV lengths."""
+    if sk >= FLASH_MIN_KV:
+        return "flash"
+    if sk >= SHORT_MIN_KV and sq >= SHORT_MIN_Q:
+        area = _ceil_to(sq, 16) * _ceil_to(sk, 128)
+        return "folded" if area <= SHORT_MAX_AREA else "flash"
+    return "plain"
+
+
+def mha_reference(q, k, v, *, scale: float | None = None) -> torch.Tensor:
+    """Exact attention over ``(B, S, H, D)`` in plain PyTorch: f32 logits and
+    softmax, weights rounded to v's dtype, f32 sums, output in q's dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
+    return out.to(q.dtype)
+
+
+def multi_head_attention(q, k, v, *, scale: float | None = None,
+                         backend: str | None = None) -> torch.Tensor:
+    """Multi-head attention over ``(B, S, H, D)`` tensors.
+
+    ``backend``: ``None`` routes by shape (see the module docstring);
+    ``"plain"`` forces the plain path. Returns ``(B, Sq, H, D)``.
+    """
+    if backend not in (None, "plain"):
+        raise ValueError(f"unknown attention backend {backend!r}")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    route = "plain" if backend == "plain" else select_route(sq, sk)
+    if route == "plain":
+        return mha_reference(q, k, v, scale=scale)
+    if route == "folded":
+        out = folded_attention(q.reshape(b, sq, h * d), k.reshape(b, sk, h * d),
+                               v.reshape(b, sk, h * d), heads=h, scale=scale)
+        return out.reshape(b, sq, h, d)
+
+    def heads_first(x):
+        return x.transpose(1, 2).contiguous()
+    out = flash_attention(heads_first(q), heads_first(k), heads_first(v),
+                          scale=scale)
+    return out.transpose(1, 2)
