@@ -1,4 +1,5 @@
-// Device code shared by the two attention kernels (flash_fwd.cu, folded_fwd.cu).
+// Device code shared by the attention kernels (flash_fwd.cu, folded_fwd.cu,
+// and through attention_bwd.cuh the backward kernels).
 //
 // bf16: one warp owns 16 query rows. Q stays in registers as mma.sync A
 // fragments; keys arrive in 64-key chunks in shared memory; S = Q K^T and
@@ -11,6 +12,8 @@
 //
 // Head dim is fixed at 64. Masked (padded) keys get a logit of -1e30, as in
 // the TPU kernels; their V rows are zero-filled so that 0 * V stays finite.
+// When asked for it, each forward also writes the row's log-sum-exp
+// m + log(l) in f32, the residual that the backward kernels read.
 
 #pragma once
 
@@ -177,15 +180,24 @@ struct WarpAttn {
 
   // Normalise and store rows row0 + {g, g + 8} that lie below `valid`.
   // `out` points at row 0 of this (batch, head); `ostride` is its row stride.
+  // With `lse` set (row 0 of this (batch, head), row stride `lstride`), also
+  // store each row's log-sum-exp.
   template <typename OutT>
   __device__ __forceinline__ void store(OutT* out, long long ostride, int row0,
-                                        int valid, int lane) {
+                                        int valid, int lane, float* lse,
+                                        long long lstride) {
     const int g = lane >> 2, t = lane & 3;
     float l0 = l[0], l1 = l[1];
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    // m is the same in the 4 threads of a row (reduced over the quad)
+    if (lse != nullptr && t == 0) {
+      if (row0 + g < valid) lse[(long long)(row0 + g) * lstride] = m[0] + logf(l0);
+      if (row0 + g + 8 < valid)
+        lse[(long long)(row0 + g + 8) * lstride] = m[1] + logf(l1);
     }
     const float r0 = 1.f / l0, r1 = 1.f / l1;
 #pragma unroll
@@ -216,10 +228,12 @@ constexpr int kScalarRow = kD + 1;                     // padded f32 row stride
 constexpr int kScalarSmemFloats = kScalarQ * kD + 2 * 32 * kScalarRow;
 
 // q, k, v, out point at row 0 of one (batch, head); strides in elements.
+// `lse` (may be null) points at row 0 of this (batch, head) with row stride
+// `l_rs`.
 __device__ __forceinline__ void scalar_attend(
-    const float* q, const float* k, const float* v, float* out,
+    const float* q, const float* k, const float* v, float* out, float* lse,
     long long q_rs, long long k_rs, long long v_rs, long long o_rs,
-    int sq, int sk, int row0, float scale, float* smem) {
+    long long l_rs, int sq, int sk, int row0, float scale, float* smem) {
   float* q_s = smem;
   float* k_s = q_s + kScalarQ * kD;
   float* v_s = k_s + 32 * kScalarRow;
@@ -280,6 +294,8 @@ __device__ __forceinline__ void scalar_attend(
     if (r < sq) {
       out[(long long)r * o_rs + lane] = acc0[i] / l[i];
       out[(long long)r * o_rs + lane + 32] = acc1[i] / l[i];
+      // m and l are the same in every lane (reduced over the warp)
+      if (lse != nullptr && lane == 0) lse[(long long)r * l_rs] = m[i] + logf(l[i]);
     }
   }
 }

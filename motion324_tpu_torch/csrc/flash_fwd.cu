@@ -4,7 +4,9 @@
 // (reached through `_fwd` and `flash_attention`): exact attention over
 // (B, H, S, 64) with an online softmax over KV tiles, the logit scale folded
 // into q, padded keys masked to -1e30, m / l / acc in f32 and the output in
-// q's dtype.
+// q's dtype. When the call is differentiated it also writes the f32
+// log-sum-exp of each row, 2-D (B*H, Sq), the residual that K3 / K4
+// (flash_bwd.cu) read; a forward-only call passes no lse and writes none.
 //
 // What bounds it on the H100: at the global-attention shape (12 heads x 3 888
 // tokens) it is compute bound (4*S^2*D flops against ~24 MB of traffic); at
@@ -34,8 +36,8 @@ constexpr int kBlockQ = 16 * kWarps;
 
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int sk,
-               float scale) {
+               const bf16* __restrict__ v, bf16* __restrict__ o,
+               float* __restrict__ lse, int sq, int sk, float scale) {
   // raw 16-byte words: bf16 has a constructor, __shared__ arrays may not
   __shared__ uint4 smem_raw[(kBlockQ + 2 * kKeys) * kRow * sizeof(bf16) / 16];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
@@ -60,39 +62,42 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     st.step(k_s, v_s, min(kKeys, sk - kv0), lane);
   }
-  st.store(o + bh * sq * kD, kD, row0 + warp * 16, sq, lane);
+  st.store(o + bh * sq * kD, kD, row0 + warp * 16, sq, lane,
+           lse == nullptr ? nullptr : lse + bh * sq, 1);
 }
 
 __global__ void __launch_bounds__(kScalarWarps * 32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int sq, int sk,
-              float scale) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int sq, int sk, float scale) {
   __shared__ float smem[kScalarSmemFloats];
   const long long bh = blockIdx.y;
   scalar_attend(q + bh * sq * kD, k + bh * sk * kD, v + bh * sk * kD,
-                o + bh * sq * kD, kD, kD, kD, kD, sq, sk,
-                blockIdx.x * kScalarQ, scale, smem);
+                o + bh * sq * kD, lse == nullptr ? nullptr : lse + bh * sq,
+                kD, kD, kD, kD, 1, sq, sk, blockIdx.x * kScalarQ, scale, smem);
 }
 
 }  // namespace
 
 // q, o: (B*H, sq, 64); k, v: (B*H, sk, 64); all contiguous, 16-byte aligned.
+// lse: null, or f32 (B*H, sq) that receives each row's log-sum-exp.
 // dtype: 0 = float32, 1 = bfloat16. Launches on `stream`, allocates nothing,
 // does not synchronise; returns cudaGetLastError() after the launch.
 extern "C" int m324_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, int bh, int sq, int sk, float scale,
-                              int dtype, void* stream) {
+                              void* o, float* lse, int bh, int sq, int sk,
+                              float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     dim3 grid((sq + kBlockQ - 1) / kBlockQ, bh);
     flash_fwd_bf16<<<grid, kWarps * 32, 0, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, scale);
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, sk, scale);
   } else {
     dim3 grid((sq + kScalarQ - 1) / kScalarQ, bh);
     flash_fwd_f32<<<grid, kScalarWarps * 32, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), sq, sk, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk,
+        scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,10 @@
 // (reached through `_call_fwd` and `folded_attention`): attention for short
 // sequences read straight from the model-native (B, S, H*64) layout, with no
 // transpose on either side, the whole KV of a head resident on chip, padded
-// keys masked and the logit scale folded into q.
+// keys masked and the logit scale folded into q. When the call is
+// differentiated it also writes the f32 log-sum-exp per row and head,
+// (B, Sq, H), the residual that K5 (folded_bwd.cu) reads; the DINOv2 calls,
+// which run without gradients, pass no lse and write none.
 //
 // What bounds it on the H100: at its two call sites (local frame attention,
 // 324 tokens; DINOv2, 257 tokens; 12 heads, 12 images) the work is small,
@@ -40,10 +43,10 @@ constexpr int kResident = 384;  // keys of one head kept in shared memory
 
 __global__ void __launch_bounds__(kWarps * 32)
 folded_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int sq,
-                int sk, int heads, long long q_bs, long long q_rs,
-                long long k_bs, long long k_rs, long long v_bs, long long v_rs,
-                float scale, int cap) {
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                float* __restrict__ lse, int sq, int sk, int heads,
+                long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+                long long v_bs, long long v_rs, float scale, int cap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + kBlockQ * kRow;
@@ -72,23 +75,25 @@ folded_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       st.step(k_s + c * kRow, v_s + c * kRow, min(kKeys, n - c), lane);
   }
   const long long o_rs = (long long)heads * kD;
-  st.store(o + b * sq * o_rs + h * kD, o_rs, row0 + warp * 16, sq, lane);
+  st.store(o + b * sq * o_rs + h * kD, o_rs, row0 + warp * 16, sq, lane,
+           lse == nullptr ? nullptr : lse + b * sq * heads + h, heads);
 }
 
 __global__ void __launch_bounds__(kScalarWarps * 32)
 folded_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, int sq,
-               int sk, int heads, long long q_bs, long long q_rs,
-               long long k_bs, long long k_rs, long long v_bs, long long v_rs,
-               float scale) {
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, int sq, int sk, int heads,
+               long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+               long long v_bs, long long v_rs, float scale) {
   __shared__ float smem[kScalarSmemFloats];
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const long long o_rs = (long long)heads * kD;
   scalar_attend(q + b * q_bs + h * kD, k + b * k_bs + h * kD,
                 v + b * v_bs + h * kD, o + b * sq * o_rs + h * kD,
-                q_rs, k_rs, v_rs, o_rs, sq, sk, blockIdx.x * kScalarQ, scale,
-                smem);
+                lse == nullptr ? nullptr : lse + b * sq * heads + h,
+                q_rs, k_rs, v_rs, o_rs, heads, sq, sk, blockIdx.x * kScalarQ,
+                scale, smem);
 }
 
 size_t smem_bytes(int cap) {
@@ -99,11 +104,14 @@ size_t smem_bytes(int cap) {
 
 // q: (B, sq, H*64) and k, v: (B, sk, H*64), each with its own batch stride
 // (*_bs) and row stride (*_rs) in elements, unit stride within a row, and
-// rows 16-byte aligned. o: contiguous (B, sq, H*64). dtype: 0 = float32,
-// 1 = bfloat16. Launches on `stream`, allocates nothing, does not
-// synchronise; returns the first CUDA error seen (attribute set or launch).
+// rows 16-byte aligned. o: contiguous (B, sq, H*64). lse: null, or f32
+// (B, sq, H) that receives the log-sum-exp of each row and head. dtype:
+// 0 = float32, 1 = bfloat16. Launches on `stream`, allocates nothing, does
+// not synchronise; returns the first CUDA error seen (attribute set or
+// launch).
 extern "C" int m324_folded_fwd(const void* q, const void* k, const void* v,
-                               void* o, int batch, int heads, int sq, int sk,
+                               void* o, float* lse, int batch, int heads,
+                               int sq, int sk,
                                long long q_bs, long long q_rs, long long k_bs,
                                long long k_rs, long long v_bs, long long v_rs,
                                float scale, int dtype, void* stream) {
@@ -119,14 +127,14 @@ extern "C" int m324_folded_fwd(const void* q, const void* k, const void* v,
     dim3 grid((sq + kBlockQ - 1) / kBlockQ, heads, batch);
     folded_fwd_bf16<<<grid, kWarps * 32, smem_bytes(cap), s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, heads,
-        q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, cap);
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, sk,
+        heads, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, cap);
   } else {
     dim3 grid((sq + kScalarQ - 1) / kScalarQ, heads, batch);
     folded_fwd_f32<<<grid, kScalarWarps * 32, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), sq, sk, heads,
-        q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk,
+        heads, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from motion324_tpu_torch.models.transformer import GELU
+from motion324_tpu_torch.models.transformer import GELU, LayerNorm, Linear
 from motion324_tpu_torch.ops.attention import multi_head_attention
 
 __all__ = ["DinoViT", "IMAGENET_MEAN", "IMAGENET_STD"]
@@ -29,8 +29,8 @@ class _Attention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.attn_backend = attn_backend
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x):
         b, l, c = x.shape
@@ -53,9 +53,9 @@ class _LayerScale(nn.Module):
 class _Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
+        self.fc1 = Linear(dim, hidden)
         self.act = GELU()
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x):
         return self.fc2(self.act(self.fc1(x)))
@@ -65,10 +65,10 @@ class _Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
                  attn_backend: str | None):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = _Attention(dim, num_heads, attn_backend)
         self.ls1 = _LayerScale(dim)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = _Mlp(dim, dim * mlp_ratio)
         self.ls2 = _LayerScale(dim)
 
@@ -85,7 +85,7 @@ class _PatchEmbed(nn.Module):
 
 class DinoViT(nn.Module):
     """Frozen DINOv2 encoder: ``(B, H, W, 3)`` in [0, 1] ->
-    ``(B, (H/14)*(W/14), C)`` patch tokens."""
+    ``(B, (H/14)*(W/14), C)`` patch tokens, computed in the images' dtype."""
 
     def __init__(self, embed_dim: int = 768, depth: int = 12,
                  num_heads: int = 12, patch_size: int = 14,
@@ -101,7 +101,7 @@ class DinoViT(nn.Module):
         self.blocks = nn.ModuleList(
             _Block(embed_dim, num_heads, mlp_ratio, attn_backend)
             for _ in range(depth))
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
+        self.norm = LayerNorm(embed_dim, eps=1e-6)
 
     def _patch_pos(self, gh: int, gw: int) -> torch.Tensor:
         pos = self.pos_embed[:, 1:]
@@ -120,7 +120,9 @@ class DinoViT(nn.Module):
         mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)
         std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)
         x = ((images - mean) / std).permute(0, 3, 1, 2)
-        x = self.patch_embed.proj(x.to(self.pos_embed.dtype))
+        proj = self.patch_embed.proj
+        x = F.conv2d(x, proj.weight.to(x.dtype), proj.bias.to(x.dtype),
+                     stride=proj.stride)
         x = x.flatten(2).transpose(1, 2)
         x = x + self._patch_pos(gh, gw).to(x.dtype)
         cls = (self.cls_token + self.pos_embed[:, :1]).to(x.dtype)

@@ -7,6 +7,12 @@ reference checkpoint (``points_transformer_blocks.{i}``,
 ``global_transformer_blocks.{i}``, ``shared_mlp_output.{0,1,3}``,
 ``image_encoder.model.*`` ...). The video position table is a computed,
 non-persistent buffer.
+
+The model computes in ``cfg.dtype`` whatever dtype its parameters are kept
+in (f32 parameters under bf16 compute in training, as in the JAX recipe).
+Training adds the position-embedding dropout (``train=True``, mask drawn
+from an explicit ``torch.Generator``) and, with ``remat`` set, recomputes
+each transformer block in the backward (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -16,10 +22,12 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from motion324_tpu_torch.config import ModelConfig
 from motion324_tpu_torch.models.dinov2 import DinoViT
 from motion324_tpu_torch.models.transformer import (GELU, CrossAttentionBlock,
+                                                    LayerNorm, Linear,
                                                     TransformerBlock)
 from motion324_tpu_torch.ops.embeddings import (apply_point_basis,
                                                 point_embed_basis,
@@ -34,7 +42,7 @@ class _PointEmbed(nn.Module):
         super().__init__()
         self.register_buffer("basis", torch.from_numpy(point_embed_basis(hidden)),
                              persistent=False)
-        self.mlp = nn.Linear(hidden + 3, dim)
+        self.mlp = Linear(hidden + 3, dim)
 
     def forward(self, pcd):
         return self.mlp(apply_point_basis(pcd, self.basis))
@@ -57,11 +65,12 @@ class MotionLatentModel(nn.Module):
     def __init__(self, cfg: ModelConfig, seed: int | None = 0):
         super().__init__()
         self.cfg = c = cfg
+        self.remat = False   # recompute each block in the backward (training)
         kw = dict(head_dim=c.head_dim, use_qk_norm=c.use_qk_norm,
                   attn_backend=c.attn_backend)
         d = c.feat_dim
         self.point_embed = _PointEmbed(c.point_hidden, d)
-        self.point_normal_rgb_proj = nn.Linear(d + 6, d)
+        self.point_normal_rgb_proj = Linear(d + 6, d)
         self.learnable_tokens = nn.Parameter(torch.zeros(1, c.tokens, d))
         self.special_token_0 = nn.Parameter(torch.zeros(1, 4, d))
         self.special_token_rest = nn.Parameter(torch.zeros(1, 4, d))
@@ -76,11 +85,10 @@ class MotionLatentModel(nn.Module):
             TransformerBlock(d, **kw) for _ in range(n_pairs))
         self.local_transformer_blocks = nn.ModuleList(
             TransformerBlock(d, **kw) for _ in range(n_pairs))
-        self.transformer_input_layernorm = nn.LayerNorm(d, eps=1e-5, bias=False)
-        self.pos_drop = nn.Dropout(c.drop_rate)
+        self.transformer_input_layernorm = LayerNorm(d, eps=1e-5, bias=False)
         self.decoder_cross_attn = CrossAttentionBlock(d, **kw)
         self.shared_mlp_output = nn.Sequential(
-            nn.LayerNorm(d, eps=1e-5), nn.Linear(d, d), GELU(), nn.Linear(d, 3))
+            LayerNorm(d, eps=1e-5), Linear(d, d), GELU(), Linear(d, 3))
         self.register_buffer(
             "video_pos_embed",
             torch.from_numpy(video_pos_embed(c.frames, c.grid, c.grid, d)),
@@ -90,7 +98,13 @@ class MotionLatentModel(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.learnable_tokens.dtype
+        """The compute dtype."""
+        return self.cfg.dtype
+
+    def _block(self, blk, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(blk, *args, use_reentrant=False)
+        return blk(*args)
 
     # ------------------------------------------------------------------ #
     def _point_features(self, pcd, normals, rgbs):
@@ -103,14 +117,19 @@ class MotionLatentModel(nn.Module):
     def encode_shape(self, shape_pcd, shape_normals, shape_rgbs):
         """Shape samples -> ``(B, tokens, C)`` mesh tokens."""
         feats = self._point_features(shape_pcd, shape_normals, shape_rgbs)
-        queries = self.learnable_tokens.expand(shape_pcd.shape[0], -1, -1)
-        x = self.encoder_cross_attn(queries, feats, feats)
+        queries = self.learnable_tokens.to(self.dtype).expand(
+            shape_pcd.shape[0], -1, -1)
+        x = self._block(self.encoder_cross_attn, queries, feats, feats)
         for blk in self.points_transformer_blocks:
-            x = blk(x)
+            x = self._block(blk, x)
         return x
 
-    def encode_video(self, rgb_video, mesh_feat):
-        """Video + mesh tokens -> ``(B, T, tokens, C)`` per-frame tokens."""
+    def encode_video(self, rgb_video, mesh_feat, train: bool = False,
+                     generator: torch.Generator | None = None):
+        """Video + mesh tokens -> ``(B, T, tokens, C)`` per-frame tokens.
+
+        ``train`` applies the position-embedding dropout, its mask drawn
+        from ``generator`` (on the activations' device)."""
         c = self.cfg
         b, t, h, w, _ = rgb_video.shape
         g = c.grid
@@ -129,10 +148,15 @@ class MotionLatentModel(nn.Module):
             pos = resize_pos_embed(self.video_pos_embed, (c.frames, g, g),
                                    (t, g, g))
         x = image_tokens.reshape(b, t * g * g, c.feat_dim) + pos.to(image_tokens.dtype)
-        video_tokens = self.pos_drop(x).reshape(b, t, g * g, c.feat_dim)
+        if train and c.drop_rate > 0:
+            keep = 1.0 - c.drop_rate
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+        video_tokens = x.reshape(b, t, g * g, c.feat_dim)
 
-        special = self.special_token_rest.expand(t, -1, -1).clone()
-        special[0] = self.special_token_0[0]
+        special = self.special_token_rest.to(self.dtype).expand(t, -1, -1).clone()
+        special[0] = self.special_token_0[0].to(self.dtype)
         special = special[None].expand(b, -1, -1, -1)
         mesh_rep = mesh_feat[:, None].expand(-1, t, -1, -1)
         tokens = torch.cat([special, mesh_rep, video_tokens], dim=2)
@@ -142,8 +166,9 @@ class MotionLatentModel(nn.Module):
         x = tokens.reshape(b, t * l, c.feat_dim)
         for glob, loc in zip(self.global_transformer_blocks,
                              self.local_transformer_blocks):
-            x = glob(x)
-            x = loc(x.reshape(b * t, l, c.feat_dim)).reshape(b, t * l, c.feat_dim)
+            x = self._block(glob, x)
+            x = self._block(loc, x.reshape(b * t, l, c.feat_dim)).reshape(
+                b, t * l, c.feat_dim)
         return x.reshape(b, t, l, c.feat_dim)[:, :, 4:4 + c.tokens]
 
     def decode_points(self, pcd_tokens, pcd, normals, rgbs):
@@ -163,15 +188,17 @@ class MotionLatentModel(nn.Module):
             # (chunk * B, K, C), frame-major within the chunk
             tok = pcd_tokens[:, f0:f0 + chunk].transpose(0, 1).reshape(chunk * b, k, d)
             q = feats.repeat(chunk, 1, 1)
-            x = self.decoder_cross_attn(q, tok, tok)
+            x = self._block(self.decoder_cross_attn, q, tok, tok)
             outs.append(self.shared_mlp_output(x).reshape(chunk, b, n, 3))
         return torch.cat(outs, dim=0).transpose(0, 1).float()
 
-    def forward(self, sample: dict) -> torch.Tensor:
+    def forward(self, sample: dict, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         mesh_feat = self.encode_shape(sample["ref_shape_pcd"],
                                       sample["ref_shape_normals"],
                                       sample["ref_shape_rgbs"])
-        tokens = self.encode_video(sample["rgb_video"], mesh_feat)
+        tokens = self.encode_video(sample["rgb_video"], mesh_feat, train=train,
+                                   generator=generator)
         return self.decode_points(tokens, sample["ref_pcd"],
                                   sample["ref_normal"], sample["ref_rgb"])
 

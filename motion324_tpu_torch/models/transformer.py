@@ -6,6 +6,12 @@ state dict loads with ``load_state_dict``. LayerNorms have no bias and eps
 1e-5; RMSNorm statistics are taken in f32; GELU is exact except under bf16,
 where it is the tanh form (as in the JAX package). All attention goes through
 :func:`motion324_tpu_torch.ops.attention.multi_head_attention`.
+
+Computation runs in the dtype of the activations. Parameters may be kept in
+another dtype (f32 in training, as flax keeps ``param_dtype`` apart from
+``dtype``) and are cast to the activations' dtype where they are used
+(:class:`Linear`, :class:`LayerNorm`, :class:`RMSNorm`); with parameters
+already in that dtype the casts do nothing.
 """
 
 from __future__ import annotations
@@ -16,8 +22,9 @@ from torch import nn
 
 from motion324_tpu_torch.ops.attention import multi_head_attention
 
-__all__ = ["gelu", "GELU", "RMSNorm", "MLP", "SelfAttention", "CrossAttention",
-           "TransformerBlock", "CrossAttentionBlock"]
+__all__ = ["gelu", "GELU", "Linear", "LayerNorm", "RMSNorm", "MLP",
+           "SelfAttention", "CrossAttention", "TransformerBlock",
+           "CrossAttentionBlock"]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -28,6 +35,26 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 class GELU(nn.Module):
     def forward(self, x):
         return gelu(x)
+
+
+def _cast(p: torch.Tensor | None, dtype: torch.dtype):
+    return None if p is None else p.to(dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in the input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computing in the input's dtype (statistics in f32
+    inside ``F.layer_norm``)."""
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, _cast(self.weight, x.dtype),
+                            _cast(self.bias, x.dtype), self.eps)
 
 
 class RMSNorm(nn.Module):
@@ -49,9 +76,9 @@ class MLP(nn.Module):
 
     def __init__(self, dim: int, mlp_ratio: int = 4):
         super().__init__()
-        self.mlp = nn.Sequential(nn.Linear(dim, dim * mlp_ratio, bias=False),
+        self.mlp = nn.Sequential(Linear(dim, dim * mlp_ratio, bias=False),
                                  GELU(),
-                                 nn.Linear(dim * mlp_ratio, dim, bias=False))
+                                 Linear(dim * mlp_ratio, dim, bias=False))
 
     def forward(self, x):
         return self.mlp(x)
@@ -65,8 +92,8 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.dim, self.head_dim = dim, head_dim
         self.attn_backend = attn_backend
-        self.to_qkv = nn.Linear(dim, 3 * dim, bias=False)
-        self.fc = nn.Linear(dim, dim, bias=False)
+        self.to_qkv = Linear(dim, 3 * dim, bias=False)
+        self.fc = Linear(dim, dim, bias=False)
         if use_qk_norm:
             self.q_norm = RMSNorm(head_dim)
             self.k_norm = RMSNorm(head_dim)
@@ -94,10 +121,10 @@ class CrossAttention(nn.Module):
         super().__init__()
         self.dim, self.head_dim = dim, head_dim
         self.attn_backend = attn_backend
-        self.to_q = nn.Linear(dim, dim, bias=False)
-        self.to_k = nn.Linear(dim, dim, bias=False)
-        self.to_v = nn.Linear(dim, dim, bias=False)
-        self.fc = nn.Linear(dim, dim, bias=False)
+        self.to_q = Linear(dim, dim, bias=False)
+        self.to_k = Linear(dim, dim, bias=False)
+        self.to_v = Linear(dim, dim, bias=False)
+        self.fc = Linear(dim, dim, bias=False)
         if use_qk_norm:
             self.q_norm = RMSNorm(head_dim)
             self.k_norm = RMSNorm(head_dim)
@@ -117,8 +144,8 @@ class CrossAttention(nn.Module):
         return self.fc(out.reshape(b, lq, self.dim))
 
 
-def _layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=1e-5, bias=False)
+def _layer_norm(dim: int) -> LayerNorm:
+    return LayerNorm(dim, eps=1e-5, bias=False)
 
 
 class TransformerBlock(nn.Module):

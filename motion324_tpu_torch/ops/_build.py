@@ -22,8 +22,8 @@ __all__ = ["KERNELS", "build", "load", "build_log", "BUILD_DIR"]
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-KERNELS = ("flash_fwd", "folded_fwd")
-_HEADERS = ("attention_common.cuh",)
+KERNELS = ("flash_fwd", "flash_bwd", "folded_fwd", "folded_bwd")
+_HEADERS = ("attention_common.cuh", "attention_bwd.cuh")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -44,6 +44,30 @@ def test_importing_every_module_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+TRAINING_MODULES = [
+    "motion324_tpu_torch.training.loss", "motion324_tpu_torch.training.optimizer",
+    "motion324_tpu_torch.training.train_step",
+    "motion324_tpu_torch.training.checkpoints",
+    "motion324_tpu_torch.training.trainer", "motion324_tpu_torch.data.tracking",
+    "motion324_tpu_torch.data.dyscene", "motion324_tpu_torch.utils.logging",
+    "motion324_tpu_torch.train"]
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_load_neither_jax_nor_pil_nor_yaml(module):
+    """Each training module alone: no JAX, and PIL and PyYAML, which the
+    card's machine lacks, stay unloaded until a function needs them."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'yaml'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
