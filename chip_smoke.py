@@ -13,7 +13,9 @@ Phases, each of which raises on failure (exit code non-zero):
    compute each call's bound from the H100's data-sheet peaks.
    The training path's kernels likewise: K1 and K2 with the LSE output,
    K3 and K4 (flash backward) and K5 (head-folded backward), dq/dk/dv and
-   the LSE, beside torch's SDPA forward or backward.
+   the LSE, beside torch's SDPA forward or backward. K6, the single-KV
+   forward, with and without the LSE, at the volume query's shape and at
+   the edges of its route.
 4. pipeline: MotionPipeline.run at release width in bf16 with seeded random
    weights on examples/synthetic/blob.glb and a seeded 16-frame 224^2 video;
    check the launch counts (17 flash, 40 folded, and per call site) and
@@ -31,11 +33,21 @@ Phases, each of which raises on failure (exit code non-zero):
    steps with no skips; the median step time, samples/s, peak memory and
    one profiled step; a 16-frame window on K4; two steps of the Trainer;
    remat: forwards launched twice, the same gradients, less memory.
+6. shape: ShapeGenPipeline at the release width of Hunyuan3D-2 (DiT 16 + 32
+   blocks of 1 024, ShapeVAE 16 layers of 1 024, DINOv2-giant 40 layers)
+   in bf16 with seeded random weights and a seeded 518^2 image, at the
+   generate_assets defaults (50 steps, guidance 5, octree 384,
+   hierarchical decode in chunks of 8 192), then the CLI's cleanup: the
+   exact launches per mesh by call site (K1 40 + 2 400, K2 16, one K6 per
+   volume-query chunk), a mesh within the box, seconds per mesh by stage
+   (median of 3), peak memory, a device-only profile; stage by stage
+   against the plain attention path, and two injected K6 faults.
 
-Launches are attributed to call sites by one spy (``launch_spy``) in both
-the pipeline and the training phase. The line before the last is a JSON object with the per-kernel numbers; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-outside the repository, the script exits non-zero and prints no result.
+Launches are attributed to call sites by one spy (``launch_spy``) in the
+pipeline, training and shape phases. The line before the last is a JSON
+object with the per-kernel numbers; the last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or outside the repository, the
+script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -76,10 +88,12 @@ REPLACES = {
     "folded_fwd": "motion324_tpu/ops/folded_attention.py:50",
     "folded_fwd_lse": "motion324_tpu/ops/folded_attention.py:50",
     "folded_bwd": "motion324_tpu/ops/folded_attention.py:76",
+    "flash_single_kv": "motion324_tpu/ops/flash_attention.py:117",
+    "flash_single_kv_lse": "motion324_tpu/ops/flash_attention.py:117",
 }
 SOURCES = {"flash_fwd_lse": "flash_fwd", "flash_bwd_fused": "flash_bwd",
            "flash_bwd_two_pass": "flash_bwd", "folded_fwd_lse": "folded_fwd",
-           "folded_bwd": "folded_bwd"}
+           "folded_bwd": "folded_bwd", "flash_single_kv_lse": "flash_single_kv"}
 
 
 def log(msg: str) -> None:
@@ -153,8 +167,9 @@ def rel_err(out, want):
 
 def phase_kernels(torch, seed: int) -> list[dict]:
     import torch.nn.functional as F
+    from motion324_tpu_torch.ops import flash_attention as fa
     from motion324_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        flash_attention_reference, scale_in_dtype)
     from motion324_tpu_torch.ops.folded_attention import (
         folded_attention, folded_attention_reference)
 
@@ -163,25 +178,42 @@ def phase_kernels(torch, seed: int) -> list[dict]:
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    # (kernel, case, B, H, Sq, Sk, on the main path)
+    # (kernel, case, B, H, Sq, Sk, on the main path). K1 is launched
+    # directly, whatever the KV length (k6_route: K1 at a length that the
+    # dispatcher now sends to K6). The shape path: K1 in the DiT (2 x 16
+    # heads, 1 369 condition + 512 latent tokens) and the DINOv2-giant
+    # conditioner (24 heads, 1 370 tokens), K2 in the ShapeVAE decode (16
+    # heads, 512 latents: two resident segments of 384 + 128 keys), K6 in
+    # the volume query (16 heads, 8 192 points x 512 latents) and at the
+    # edges of its route with ragged query counts.
     cases = [
         ("flash_fwd", "global", 1, 12, 3888, 3888, True),
         ("flash_fwd", "shape_encoder", 1, 12, 64, 16384, True),
         ("flash_fwd", "ragged", 1, 12, 1000, 1296, False),
         ("flash_fwd", "k6_route", 1, 12, 972, 972, False),
+        ("flash_fwd", "dit", 2, 16, 1881, 1881, True),
+        ("flash_fwd", "conditioner", 1, 24, 1370, 1370, True),
         ("folded_fwd", "local", 12, 12, 324, 324, True),
         ("folded_fwd", "dino", 12, 12, 257, 257, True),
         ("folded_fwd", "ragged", 2, 12, 200, 1000, False),
+        ("folded_fwd", "vae", 1, 16, 512, 512, True),
+        ("flash_single_kv", "volume_query", 1, 16, 8192, 512, True),
+        ("flash_single_kv", "kv200", 2, 12, 1000, 200, False),
+        ("flash_single_kv", "kv385", 2, 12, 777, 385, False),
+        ("flash_single_kv", "kv1000", 2, 12, 333, 1000, False),
+        ("flash_single_kv", "kv1024", 2, 12, 130, 1024, False),
     ]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         for kname, case, b, h, sq, sk, main in cases:
-            if kname == "flash_fwd":
+            if kname in ("flash_fwd", "flash_single_kv"):
                 q = randn(b, h, sq, 64, dtype=dtype)
                 k = randn(b, h, sk, 64, dtype=dtype)
                 v = randn(b, h, sk, 64, dtype=dtype)
-                run = lambda: flash_attention(q, k, v)
+                launch = (fa._forward_k1 if kname == "flash_fwd"
+                          else fa._forward_single_kv)
+                run = lambda: launch(q, k, v, scale_in_dtype(q, None), False)[0]
                 plain = lambda: flash_attention_reference(q, k, v)
                 dropped = lambda: flash_attention_reference(
                     q, k[:, :, :-64], v[:, :, :-64])
@@ -222,7 +254,7 @@ def phase_kernels(torch, seed: int) -> list[dict]:
             plain_ms = time_ms(torch, plain, n=3, reps=3)
             lib_ms = time_ms(torch, lib)
             bound_ms, bound_by = bound(b, h, sq, sk, dname, q.element_size())
-            log(f"  {kname:10s} {case:13s} {dname:8s} B{b} H{h} Sq{sq} Sk{sk}: "
+            log(f"  {kname:15s} {case:13s} {dname:8s} B{b} H{h} Sq{sq} Sk{sk}: "
                 f"max|d| {err:.2e} (tol {tol:.2e} = 2^{np.log2(REL_TOL[dname]):.0f}"
                 f" x max|plain| {top:.3f}; mean|plain| {mean:.4f}; last KV tile "
                 f"dropped {miss:.2e}) kernel {ms:.4f} ms "
@@ -253,6 +285,10 @@ GRAD_CASES = [
     ("flash_bwd_two_pass", "ragged", 1, 4, 1000, 4200, False),
     ("folded_bwd", "local", 24, 12, 324, 324, True),
     ("folded_bwd", "ragged", 2, 12, 200, 300, False),
+    # K6 with the LSE output, which a differentiated call on its route
+    # launches; no path of the port differentiates such a call yet
+    ("flash_single_kv_lse", "volume_query", 1, 16, 8192, 512, False),
+    ("flash_single_kv_lse", "kv1000", 2, 12, 333, 1000, False),
 ]
 
 
@@ -433,7 +469,9 @@ def launch_counters(fa, fo) -> dict:
             "folded_fwd_lse": (fo.folded_attention, "lse_launches"),
             "flash_bwd_fused": (fa.flash_attention_bwd, "fused_launches"),
             "flash_bwd_two_pass": (fa.flash_attention_bwd, "two_pass_launches"),
-            "folded_bwd": (fo.folded_attention_bwd, "launches")}
+            "folded_bwd": (fo.folded_attention_bwd, "launches"),
+            "flash_single_kv": (fa.flash_attention, "single_kv_launches"),
+            "flash_single_kv_lse": (fa.flash_attention, "single_kv_lse_launches")}
 
 
 def read_launches(fa, fo) -> dict:
@@ -457,17 +495,20 @@ def patch_backward(cls, make):
 def launch_spy(fa, fo):
     """Wrap the kernels' forward entry points and the autograd Functions'
     backwards so that each launch is attributed to its call site by the
-    shapes it was given: K1 with 64 queries is the shape encoder, any other
-    K1 a global layer; K2 over 257 tokens is DINOv2, any other K2 a local
-    layer. The counts are the wrappers' own counters, read before and after
-    each call. Returns (counts by (kernel, site), a function that removes
-    the wrappers)."""
+    shapes it was given: a flash call (K1 or K6) with 64 queries is the
+    shape encoder, with 1 370 the DINOv2-giant conditioner, with 1 881 the
+    DiT, with 8 192 the volume query, any other a global layer; K2 over 257
+    tokens is DINOv2, over 512 the ShapeVAE, any other a local layer. The
+    counts are the wrappers' own counters, read before and after each call.
+    Returns (counts by (kernel, site), a function that removes the
+    wrappers)."""
     counts: dict = {}
 
     def site_of(q, flash):
         if flash:
-            return "shape_encoder" if q.shape[2] == 64 else "global"
-        return "dino" if q.shape[1] == 257 else "local"
+            return {64: "shape_encoder", 1370: "conditioner", 1881: "dit",
+                    8192: "volume_query"}.get(q.shape[2], "global")
+        return {257: "dino", 512: "vae"}.get(q.shape[1], "local")
 
     def spy(real, flash, query):
         def f(*args, **kw):
@@ -661,6 +702,8 @@ def phase_pipeline(torch, seed: int, repo: str) -> dict:
 def kernel_group(name: str) -> str:
     """The kernel group of a CUDA kernel's name in a profile."""
     n = name.lower()
+    if "single_kv" in n:
+        return "K6 flash_single_kv"
     if "flash_fwd" in n:
         return "K1 flash_fwd"
     if "folded_fwd" in n:
@@ -680,15 +723,18 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_step(torch, run) -> None:
-    """One training step under torch.profiler, device time by kernel group."""
+def profile_step(torch, run, what: str = "step", host_ops: bool = True) -> None:
+    """One training step (or another ``run``) under torch.profiler, device
+    time by kernel group; ``host_ops=False`` records device activity only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -705,7 +751,7 @@ def profile_step(torch, run) -> None:
         g = groups.setdefault(kernel_group(e.key), [0.0, 0])
         g[0] += e.self_device_time_total / 1e3
         g[1] += e.count
-    log(f"  profiled step: wall {wall_ms:.2f} ms (profiler on), device busy "
+    log(f"  profiled {what}: wall {wall_ms:.2f} ms (profiler on), device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% busy)")
     for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"    {g:22s} {ms:9.3f} ms {n:6d} launches {100 * ms / busy_ms:5.1f}% "
@@ -1050,6 +1096,327 @@ def phase_training(torch, seed: int) -> dict:
     return out
 
 
+# the release width of Hunyuan3D-2's shape model (the ShapeGenPipeline
+# defaults) with the DINOv2-giant conditioner: 40 layers, SwiGLU
+SHAPE_DIMS = dict(cond_depth=40, cond_mlp_type="swiglu")
+SHAPE_STEPS = 50
+
+
+def shape_launches(chunks: int) -> dict:
+    """Launches per mesh by (kernel, call site): 40 conditioner layers and
+    (16 + 32) DiT blocks x 50 steps on K1, 16 ShapeVAE self-attention layers
+    on K2, one K6 per volume-query chunk; no LSE variant, no backward."""
+    return {("flash_fwd", "conditioner"): 40,
+            ("flash_fwd", "dit"): 48 * SHAPE_STEPS,
+            ("folded_fwd", "vae"): 16,
+            ("flash_single_kv", "volume_query"): chunks}
+
+
+def synthetic_image(seed: int, size: int = 518) -> np.ndarray:
+    """A shaded ellipse over a white background with a little noise,
+    (size, size, 3) float32 in [0, 1]."""
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:size, :size] / size - 0.5
+    a, b = r.uniform(0.2, 0.35, size=2)
+    inside = (xx / a) ** 2 + (yy / b) ** 2 < 1
+    img = np.ones((size, size, 3), np.float32)
+    shade = 0.5 + 0.5 * (xx - yy)[..., None]
+    img[inside] = (r.uniform(0.2, 0.9, size=3) * shade)[inside]
+    img += r.normal(0, 0.02, img.shape).astype(np.float32)
+    return np.clip(img, 0, 1)
+
+
+def smooth_query_embedding(torch, vae) -> None:
+    """Keep only the lowest octave (pi) of the ShapeVAE's query embedding:
+    zero the query projection's columns of the frequencies 2 pi to 128 pi
+    (sin and cos, per axis). With random weights every octave reaches the
+    logits with the same weight, so the occupancy field varies at the grid's
+    own scale: at seed 0 its 385^3 surface had 9.2e7 faces (NVIDIA H100
+    80GB HBM3, 700 W). A trained field is smooth. With pi alone the same
+    seed gave 4.9e6 faces, which marching cubes and the cleanup get through
+    in under a minute. The shapes of every kernel call stay the same."""
+    nf = vae.num_freqs
+    w = vae.geo_decoder.query_proj.weight
+    with torch.no_grad():
+        for part in range(2):            # sin, then cos
+            for axis in range(3):
+                start = 3 + (part * 3 + axis) * nf
+                w[:, start + 1:start + nf] = 0
+
+
+def set_attn_backend(modules, backend) -> None:
+    """Route every attention call inside ``modules`` to ``backend``."""
+    for mod in modules:
+        for m in mod.modules():
+            if hasattr(m, "attn_backend"):
+                m.attn_backend = backend
+
+
+def k6_faults(torch) -> dict:
+    """Wrong K6 calls to inject in place of the dispatcher's flash route,
+    by name: a map from the real wrapper to a faulty one that changes only
+    the calls on K6's route."""
+    from motion324_tpu_torch.ops.flash_attention import single_kv_route
+    off = 0.9 / 8.0    # the logit scale 1/sqrt(64), 10% low
+
+    def on_route(fault):
+        def make(real):
+            def f(q, k, v, **kw):
+                if single_kv_route(k.shape[2]):
+                    return fault(real, q, k, v, **kw)
+                return real(q, k, v, **kw)
+            return f
+        return make
+    return {
+        "K6 drops the last 64 keys": on_route(
+            lambda real, q, k, v, **kw: real(q, k[:, :, :-64].contiguous(),
+                                             v[:, :, :-64].contiguous(), **kw)),
+        "K6 logit scale 10% low": on_route(
+            lambda real, q, k, v, **kw: real(q, k, v, **{**kw, "scale": off})),
+    }
+
+
+def build_shape_pipeline(torch, seed: int):
+    """The release-width pipeline in bf16 with seeded random weights on the
+    card, DINOv2 LayerScale from U(0.1, 1), the query embedding cut to its
+    lowest octave and output_proj's bias set so that the coarse grid's
+    median logit is 0; the
+    seeded image, and the stages run once by hand on it (the warm-up), as
+    the pipeline runs them: returns (pipe, image, stage inputs)."""
+    from motion324_tpu_torch.hy3dgen.scheduler import flow_match_sigmas
+    from motion324_tpu_torch.hy3dgen.shape_pipeline import ShapeGenPipeline
+    from motion324_tpu_torch.hy3dgen.volume import decode_volume
+
+    t0 = time.perf_counter()
+    pipe = ShapeGenPipeline.init_random(
+        torch.Generator("cuda").manual_seed(seed), dtype=torch.bfloat16,
+        **SHAPE_DIMS)
+    set_layer_scale(torch, pipe.conditioner, seed)
+    smooth_query_embedding(torch, pipe.vae)
+    torch.cuda.synchronize()
+    count = lambda m: sum(p.numel() for p in m.parameters()) / 1e9
+    log(f"  models built on the card in {time.perf_counter() - t0:.1f} s: "
+        f"DiT {count(pipe.dit):.3f} B, conditioner {count(pipe.conditioner):.3f}"
+        f" B, ShapeVAE decoder {count(pipe.vae):.3f} B bf16 parameters")
+    image = synthetic_image(seed)
+    t0 = time.perf_counter()
+    img = pipe.prepare_image(image)
+    cond = pipe.encode_cond(img)
+    cond_pair = torch.cat([cond, torch.zeros_like(cond)])
+    noise = torch.randn(1, pipe.num_latents, pipe.latent_dim, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+    sigmas = flow_match_sigmas(SHAPE_STEPS)
+    latents = pipe.denoise(noise, cond_pair, sigmas, 5.0)
+    processed = pipe.vae_decode(latents)
+    coarse, n_coarse = decode_volume(pipe.vae.query, processed, 96)
+    # a random VAE's logits need not cross 0: shift output_proj's bias so
+    # that the coarse grid's median logit is 0 (half the box inside)
+    med = float(np.median(coarse))
+    with torch.no_grad():
+        pipe.vae.geo_decoder.output_proj.bias -= med
+    spread = np.percentile(coarse - med, [5, 50, 95])
+    log(f"  stages by hand (warm-up) {time.perf_counter() - t0:.2f} s; "
+        f"coarse 97^3 grid in {n_coarse} chunks: median logit {med:.4f} "
+        f"moved to 0 through output_proj's bias; logit percentiles 5/50/95 "
+        f"{np.round(spread, 4).tolist()}, share within the refinement band "
+        f"|logit| < 4: {float(np.mean(np.abs(coarse - med) < 4)):.4f}")
+    return pipe, image, dict(img=img, cond_pair=cond_pair, noise=noise,
+                             sigmas=sigmas, latents=latents,
+                             processed=processed, n_coarse=n_coarse)
+
+
+def shape_stage_outputs(torch, pipe, inp, steps: int) -> tuple[dict, list]:
+    """Each stage's output on the pipeline's current attention path, on
+    fixed inputs: the condition tokens, one DiT velocity at sigma[25], the
+    ShapeVAE-decoded latents, the query logits of the middle chunk of the
+    coarse grid and, within that query, the cross-attention's output (the
+    K6 call, after its output projection: the inputs to it are the same on
+    both paths); and the latents after each of the first ``steps`` Euler
+    steps."""
+    from motion324_tpu_torch.hy3dgen.volume import _flat_to_points
+    x2 = torch.cat([inp["noise"], inp["noise"]])
+    t = torch.full((2,), float(inp["sigmas"][SHAPE_STEPS // 2]), device="cuda")
+    pts = _flat_to_points(torch.arange(8192, device="cuda")
+                          + (inp["n_coarse"] // 2) * 8192, 97, 1.01)[None]
+    seen = []
+    hook = pipe.vae.geo_decoder.cross_attn_decoder.attn.register_forward_hook(
+        lambda mod, args, out: seen.append(out))
+    try:
+        with torch.inference_mode():
+            out = {"conditioner": pipe.encode_cond(inp["img"]),
+                   "dit_velocity": pipe.dit(x2, t, inp["cond_pair"]),
+                   "vae_decode": pipe.vae_decode(inp["latents"]),
+                   "query_logits": pipe.vae_query(pts, inp["processed"])}
+    finally:
+        hook.remove()
+    out["query_attention"] = seen[0]
+    x, trace = inp["noise"], []
+    for i in range(steps):
+        x = pipe.denoise(x, inp["cond_pair"], inp["sigmas"][i:i + 2], 5.0)
+        trace.append(x)
+    return out, trace
+
+
+def rel_norm(a, b) -> float:
+    """||a - b|| / ||b|| in f32."""
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def rel_max(a, b) -> float:
+    """max |a - b| / max |b| in f32."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+# the Euler steps after which the kernel path's latents are compared
+GROWTH_STEPS = (1, 2, 5, 10, 20, 50)
+# ||kernel path - plain path|| / ||plain path|| per stage at release width in
+# bf16 on the same inputs (shape_stage_outputs; the latents after 5 and
+# after all 50 Euler steps). On an NVIDIA H100 80GB HBM3 at 700 W, over
+# seeds 0-4, the sound readings were 1.45-1.60e-2 (conditioner, 40 layers),
+# 1.31-1.52e-2 (DiT velocity), 9.1-9.6e-3 (VAE decode), 1.1-3.4e-2 (query
+# logits), 1.62-1.66e-3 (the volume query's attention output), 4.1-4.4e-3
+# (latents after 5 steps) and 9.6e-3 to 1.02e-2 (after 50: the gap grows
+# from 1.7e-3 after one step and levels off). Each limit is about twice the
+# sound maximum. The K6 faults read 8.7e-3 to 1.07e-2 (64 keys dropped) and
+# 4.7e-3 to 5.3e-3 (scale 10% low) on the attention output, whose limit
+# sits 1.8x above the sound maximum and 1.6x below the smallest fault; on
+# the logits, after the VAE's MLP and norms, they read 1.6e-2 to 1.3e-1,
+# within the sound spread (PERF.md, Findings).
+SHAPE_TOL = {"conditioner": 3e-2, "dit_velocity": 3e-2, "vae_decode": 2e-2,
+             "query_logits": 6e-2, "query_attention": 3e-3,
+             "latents_5_steps": 1e-2, "latents_50_steps": 2e-2}
+
+
+def shape_agreement(torch, pipe, inp) -> list[str]:
+    """The kernel path against the plain attention path, stage by stage,
+    and the injected K6 faults against those limits; returns the
+    problems found (every reading is printed first)."""
+    from motion324_tpu_torch.ops import attention
+    models = (pipe.conditioner, pipe.dit, pipe.vae)
+    k_out, k_steps = shape_stage_outputs(torch, pipe, inp, SHAPE_STEPS)
+    set_attn_backend(models, "plain")
+    try:
+        p_out, p_steps = shape_stage_outputs(torch, pipe, inp, SHAPE_STEPS)
+    finally:
+        set_attn_backend(models, None)
+
+    def readings(out, steps, measure=rel_norm):
+        r = {k: measure(out[k], p_out[k]) for k in out}
+        for n in (5, 50):
+            if len(steps) >= n:
+                r[f"latents_{n}_steps"] = measure(steps[n - 1], p_steps[n - 1])
+        return r
+    sound = readings(k_out, k_steps)
+    maxes = readings(k_out, k_steps, rel_max)
+    log("  kernel vs plain path, ||d|| / ||plain|| (max|d| / max|plain|): "
+        + ", ".join(f"{k} {v:.3e} ({maxes[k]:.3e}; tol {SHAPE_TOL[k]:.0e})"
+                    for k, v in sound.items()))
+    log("  latents after n Euler steps, kernel vs plain, ||d|| / ||plain||: "
+        + ", ".join(f"n={n}: {rel_norm(k_steps[n - 1], p_steps[n - 1]):.3e}"
+                    for n in GROWTH_STEPS))
+    problems = []
+    bad = [k for k, v in sound.items() if not v <= SHAPE_TOL[k]]
+    if bad:
+        problems.append(f"kernel path disagrees with the plain path: {bad}")
+    for name, fault in k6_faults(torch).items():
+        real = attention.flash_attention
+        attention.flash_attention = fault(real)
+        try:
+            f_read = readings(*shape_stage_outputs(torch, pipe, inp, 5))
+        finally:
+            attention.flash_attention = real
+        caught = [k for k, v in f_read.items() if v > SHAPE_TOL[k]]
+        log(f"  injected fault, {name}: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in f_read.items())
+            + f"; caught by {caught or 'NO stage check'}")
+        if not caught:
+            problems.append(f"no stage check catches: {name}")
+    return problems
+
+
+def phase_shape(torch, seed: int) -> dict:
+    from motion324_tpu_torch.hy3dgen.postprocess import (reduce_faces,
+                                                         remove_degenerate,
+                                                         remove_floaters)
+    from motion324_tpu_torch.ops import flash_attention as fa
+    from motion324_tpu_torch.ops import folded_attention as fo
+
+    pipe, image, inp = build_shape_pipeline(torch, seed)
+    # the generate_assets defaults: 50 steps, guidance 5, octree 384,
+    # hierarchical decode in chunks of 8 192; no recentering (needs cv2)
+    call = dict(num_inference_steps=SHAPE_STEPS, guidance_scale=5.0,
+                octree_resolution=384, hierarchical=True, num_chunks=8192,
+                recenter=False, seed=seed)
+
+    def mesh_run():
+        """One mesh: generation, then generate_assets' cleanup; returns
+        (mesh, cleaned mesh, seconds by stage, seconds in all)."""
+        t0 = time.perf_counter()
+        mesh = pipe(image, **call)
+        t1 = time.perf_counter()
+        clean = mesh
+        if len(clean.faces) > 4_000_000:   # generate_assets' noise guard
+            clean = reduce_faces(clean, 2_000_000, method="cluster")
+        clean = reduce_faces(remove_degenerate(remove_floaters(clean)), 40000)
+        t2 = time.perf_counter()
+        stages = {**pipe.last_run["seconds"], "postprocess": t2 - t1}
+        return mesh, clean, stages, t2 - t0
+
+    # launches in one mesh, by call site; this is the first timed run
+    zero_launches(fa, fo)
+    by_site, undo = launch_spy(fa, fo)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        mesh, clean, stages, total = mesh_run()
+    finally:
+        undo()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    totals = read_launches(fa, fo)
+    chunks = pipe.last_run["query_chunks"]
+    want_sites = shape_launches(chunks)
+    want_totals = dict.fromkeys(totals, 0)
+    for (k, _), n in want_sites.items():
+        want_totals[k] += n
+    n_coarse = inp["n_coarse"]
+    log(f"  one mesh: {len(mesh.vertices)} vertices, {len(mesh.faces)} faces, "
+        f"{len(clean.faces)} after cleanup; {chunks} volume-query chunks "
+        f"({n_coarse} coarse + {chunks - n_coarse} refinement); launches "
+        f"{totals}; by call site {dict(sorted(by_site.items()))}; peak device "
+        f"memory {peak_gb:.3f} GB")
+    problems = []
+    if totals != want_totals or by_site != want_sites:
+        problems.append(f"shape launches {totals} / {by_site}, expected "
+                        f"{want_totals} / {want_sites}")
+    if not (len(mesh.faces) > 0 and np.isfinite(mesh.vertices).all()
+            and np.abs(mesh.vertices).max() <= 1.01 + 1e-5
+            and 0 < len(clean.faces) <= 40000):
+        problems.append(f"bad mesh: {len(mesh.faces)} faces ({len(clean.faces)}"
+                        f" after cleanup), finite "
+                        f"{np.isfinite(mesh.vertices).all()}")
+    # seconds per mesh: the median of 3 runs, by stage
+    runs = [(total, stages)]
+    for _ in range(2):
+        _, _, st, tt = mesh_run()
+        runs.append((tt, st))
+    log(f"  seconds per mesh (generation + cleanup): median "
+        f"{np.median([r[0] for r in runs]):.3f} over {len(runs)} runs "
+        f"{[round(r[0], 3) for r in runs]}")
+    for name in stages:
+        vals = [r[1][name] for r in runs]
+        log(f"    {name:15s} median {np.median(vals):8.4f} s  "
+            f"{[round(v, 4) for v in vals]}")
+    # one generation under the profiler, device activity only (recording
+    # each host-side op of about 3e5 launches would triple the wall time)
+    profile_step(torch, lambda: pipe(image, **call), what="mesh generation",
+                 host_ops=False)
+    problems += shape_agreement(torch, pipe, inp)
+    del pipe, inp
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return by_site
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1065,19 +1432,26 @@ def main(argv=None) -> int:
         raise SystemExit(f"motion324_tpu_torch not found next to "
                          f"chip_smoke.py: {e}")
 
-    log("== build")
+    t_start = time.perf_counter()
+
+    def header(title: str) -> None:
+        log(f"== {title} (at {time.perf_counter() - t_start:.0f} s)")
+    header("build")
     phase_build()
-    log("== kernels against their plain versions")
+    header("kernels against their plain versions")
     rows = phase_kernels(torch, args.seed)
-    log("== training kernels (LSE forwards, backwards) against their "
-        "plain versions")
+    header("training kernels (LSE forwards, backwards) against their plain "
+           "versions")
     rows += phase_grad_kernels(torch, args.seed)
-    log("== main path: MotionPipeline.run, release width, bf16")
+    header("main path: MotionPipeline.run, release width, bf16")
     launches = phase_pipeline(torch, args.seed, repo)
-    log("== training path: train_step, release width, bf16 compute, "
-        "f32 params")
+    header("training path: train_step, release width, bf16 compute, f32 "
+           "params")
     for key, n in phase_training(torch, args.seed).items():
         launches.setdefault(key, n)   # DINOv2's K2 row keeps its clip count
+    header("shape path: ShapeGenPipeline, release width, bf16")
+    launches.update(phase_shape(torch, args.seed))
+    header("done")
 
     kernels = []
     for r in rows:

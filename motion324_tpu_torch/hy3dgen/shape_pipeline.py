@@ -1,0 +1,264 @@
+"""Image -> mesh shape generation: DINOv2 condition, flow-matching DiT,
+ShapeVAE, volume decode and marching cubes.
+
+The stages, each a method with the JAX package's inputs and outputs:
+
+1. :meth:`ShapeGenPipeline.encode_cond`: a frozen DINOv2 ViT over the
+   518^2 image (the multiview variant over up to 4 views); the
+   unconditional embedding is zeros;
+2. :meth:`~ShapeGenPipeline.denoise`: the 50-step classifier-free-guidance
+   Euler loop of flow matching (guidance 5.0), a Python loop over the steps
+   with the conditional and unconditional inputs in one batch of 2;
+3. :meth:`~ShapeGenPipeline.vae_decode`: the ShapeVAE lifts the latents;
+4. the volume decode (:mod:`motion324_tpu_torch.hy3dgen.volume`) scores an
+   (R+1)^3 grid in chunks of 8 192 points through
+   :meth:`~ShapeGenPipeline.vae_query`, coarse then fine near the surface;
+5. marching cubes (:mod:`motion324_tpu_torch.native`) on the host, at the
+   grid's box.
+
+Everything up to the grid runs on the pipeline's device (CUDA unless the
+caller passes ``device="cpu"``) in ``dtype``; attention takes K1 (the
+conditioner and the DiT), K2 (the VAE's self-attention) and K6 (the volume
+query). The latent noise comes from a ``torch.Generator`` seeded with
+``seed``, so its numbers differ from the JAX package's ``PRNGKey`` noise; the
+stages take the same inputs as the JAX package's and give the same outputs.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from motion324_tpu_torch import resolve_device
+from motion324_tpu_torch.hy3dgen.conditioner import DinoConditionerMV
+from motion324_tpu_torch.hy3dgen.dit import Hunyuan3DDiT
+from motion324_tpu_torch.hy3dgen.scheduler import flow_match_sigmas
+from motion324_tpu_torch.hy3dgen.vae import ShapeVAE
+from motion324_tpu_torch.hy3dgen.volume import (decode_volume,
+                                                decode_volume_flashvdm,
+                                                decode_volume_hierarchical)
+from motion324_tpu_torch.io.mesh import TriMesh
+from motion324_tpu_torch.models.dinov2 import DinoViT
+from motion324_tpu_torch.models.motion_model import init_weights
+
+__all__ = ["ShapeGenPipeline"]
+
+
+class ShapeGenPipeline:
+    """The three models on one device; ``pipe(image)`` -> :class:`TriMesh`.
+
+    ``state_dicts``: ``{'dit', 'vae', 'conditioner'}`` in the port's names
+    (see :mod:`motion324_tpu_torch.utils.convert`); without them the weights
+    are random, drawn from ``generator`` (default: seed 0 on the device) on
+    the device. After each call ``last_run`` holds the seconds of each stage
+    and the number of volume-query chunks.
+    """
+
+    def __init__(self, state_dicts: dict | None = None, *,
+                 num_latents: int = 512, latent_dim: int = 64,
+                 cond_dim: int = 1536, cond_depth: int = 24,
+                 cond_heads: int = 24, dit_hidden: int = 1024,
+                 dit_heads: int = 16, dit_depth: int = 16,
+                 dit_single: int = 32, vae_width: int = 1024,
+                 vae_heads: int = 16, vae_layers: int = 16,
+                 image_size: int = 518, dtype: torch.dtype = torch.bfloat16,
+                 attn_backend: str | None = None,
+                 conditioner_type: str = "single", view_num: int = 4,
+                 cond_mlp_type: str = "mlp", cond_native_grid: int = 37,
+                 device=None, generator: torch.Generator | None = None):
+        if conditioner_type not in ("single", "mv"):
+            raise ValueError(f"conditioner_type must be 'single' or 'mv', "
+                             f"got {conditioner_type!r}")
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.conditioner_type = conditioner_type
+        self.num_latents, self.latent_dim = num_latents, latent_dim
+        self.image_size = image_size
+        # built without storage, then given it on the device in `dtype`: at
+        # release width (2.4 B parameters) nothing is drawn on the host
+        with torch.device("meta"):
+            self.dit = Hunyuan3DDiT(in_channels=latent_dim,
+                                    context_in_dim=cond_dim,
+                                    hidden_size=dit_hidden,
+                                    num_heads=dit_heads, depth=dit_depth,
+                                    depth_single_blocks=dit_single,
+                                    attn_backend=attn_backend)
+            self.vae = ShapeVAE(num_latents=num_latents, embed_dim=latent_dim,
+                                width=vae_width, heads=vae_heads,
+                                num_decoder_layers=vae_layers,
+                                attn_backend=attn_backend)
+            if conditioner_type == "mv":
+                self.conditioner = DinoConditionerMV(
+                    embed_dim=cond_dim, depth=cond_depth, num_heads=cond_heads,
+                    native_grid=cond_native_grid, mlp_type=cond_mlp_type,
+                    view_num=view_num, attn_backend=attn_backend)
+            else:
+                self.conditioner = DinoViT(
+                    embed_dim=cond_dim, depth=cond_depth, num_heads=cond_heads,
+                    native_grid=cond_native_grid, mlp_type=cond_mlp_type,
+                    attn_backend=attn_backend)
+        for name in ("dit", "vae", "conditioner"):
+            mod = getattr(self, name).to_empty(device=self.device).to(dtype)
+            if state_dicts is None:
+                if generator is None:
+                    generator = torch.Generator(self.device).manual_seed(0)
+                init_weights(mod, generator)
+            else:
+                mod.load_state_dict(state_dicts[name])
+            mod.eval().requires_grad_(False)
+        self.last_run: dict = {}
+
+    # ------------------------------------------------------------------ #
+    @classmethod
+    def init_random(cls, generator: torch.Generator | None = None, **kwargs):
+        """Random-weight pipeline (smoke and benchmark mode)."""
+        return cls(None, generator=generator, **kwargs)
+
+    @classmethod
+    def from_hunyuan_ckpt(cls, ckpt_path: str, **kwargs):
+        """The pipeline from a released Hunyuan3D-2 single-file checkpoint
+        (a torch pickle of ``{'model', 'vae', 'conditioner'}``). The dims are
+        read from the state dicts; explicit kwargs override them."""
+        from motion324_tpu_torch.utils.convert import hunyuan_ckpt_state_dicts
+        ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        sds, dims = hunyuan_ckpt_state_dicts(
+            ckpt, mv=kwargs.get("conditioner_type") == "mv")
+        # the checkpoint's ShapeVAE also holds its encoder: keep the keys of
+        # the decoder this port runs (missing ones still fail the load)
+        with torch.device("meta"):
+            wanted = ShapeVAE(num_latents=kwargs.get("num_latents", 512),
+                              embed_dim=dims["latent_dim"],
+                              width=dims["vae_width"],
+                              heads=kwargs.get("vae_heads", 16),
+                              num_decoder_layers=dims["vae_layers"]
+                              ).state_dict().keys()
+        sds["vae"] = {k: v for k, v in sds["vae"].items() if k in wanted}
+        return cls(sds, **{**dims, **kwargs})
+
+    # ------------------------------------------------------------------ #
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def prepare_image(self, image: np.ndarray) -> torch.Tensor:
+        """(H, W, 3|4) in [0, 1] -> (1, S, S, 3) on the device, in dtype."""
+        x = torch.as_tensor(np.ascontiguousarray(image[..., :3], np.float32),
+                            device=self.device)[None]
+        s = self.image_size
+        if x.shape[1:3] != (s, s):
+            x = F.interpolate(x.permute(0, 3, 1, 2), size=(s, s),
+                              mode="bilinear", antialias=True,
+                              align_corners=False).permute(0, 2, 3, 1)
+        return x.to(self.dtype)
+
+    @torch.inference_mode()
+    def encode_cond(self, images, view_idxs=None) -> torch.Tensor:
+        """Condition tokens ``(B, Lc, C)``: ``images`` (B, S, S, 3), or
+        (B, V, S, S, 3) with ``view_idxs`` (B, V) for the multiview
+        conditioner, in [0, 1]."""
+        images = torch.as_tensor(images, device=self.device).to(self.dtype)
+        if self.conditioner_type == "mv":
+            return self.conditioner(images, torch.as_tensor(
+                view_idxs, device=self.device))
+        return self.conditioner(images)
+
+    @torch.inference_mode()
+    def denoise(self, latents, cond_pair, sigmas, guidance_scale: float):
+        """The CFG flow-matching Euler loop: ``latents`` (1, L, C) f32,
+        ``cond_pair`` (2, Lc, C) = [cond, uncond], ``sigmas`` the ladder of
+        :func:`flow_match_sigmas`. Returns the f32 latents."""
+        x = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
+        cond_pair = torch.as_tensor(cond_pair, device=self.device)
+        sig = np.asarray(sigmas, np.float32)
+        for i in range(len(sig) - 1):
+            t = torch.full((2,), float(sig[i]), device=self.device)
+            v_cond, v_uncond = self.dit(torch.cat([x, x]), t, cond_pair).chunk(2)
+            v = v_uncond + guidance_scale * (v_cond - v_uncond)
+            x = x + float(sig[i + 1] - sig[i]) * v
+        return x
+
+    @torch.inference_mode()
+    def vae_decode(self, latents) -> torch.Tensor:
+        """(B, num_latents, latent_dim) -> the processed latent set."""
+        return self.vae.decode(torch.as_tensor(latents, device=self.device))
+
+    @torch.inference_mode()
+    def vae_query(self, points, processed) -> torch.Tensor:
+        """(B, N, 3) points -> (B, N) f32 occupancy logits."""
+        return self.vae.query(torch.as_tensor(points, device=self.device),
+                              processed)
+
+    # ------------------------------------------------------------------ #
+    @torch.inference_mode()
+    def __call__(self, image, *, num_inference_steps: int = 50,
+                 guidance_scale: float = 5.0, octree_resolution: int = 384,
+                 mc_level: float = 0.0, num_chunks: int = 8192,
+                 hierarchical: bool = True, box_v: float = 1.01,
+                 enable_flashvdm: bool = False, flashvdm_topk: int = 64,
+                 recenter: bool = True, border_ratio: float = 0.15,
+                 seed: int = 0) -> TriMesh:
+        """image (H, W, 3|4) in [0, 1] -> the extracted TriMesh.
+
+        With the multiview conditioner pass a dict of view tag
+        (front/left/back/right) -> image. ``recenter`` runs the alpha-aware
+        border-ratio recentering (needs cv2); pass False for an image that
+        is already prepared.
+        """
+        from motion324_tpu_torch import native
+        times = {}
+        t0 = time.perf_counter()
+        if self.conditioner_type == "mv":
+            if not isinstance(image, dict):
+                raise ValueError("the mv pipeline takes a dict of view tag -> "
+                                 "image (front/left/back/right)")
+            from motion324_tpu_torch.hy3dgen.preprocess_image import (
+                prepare_condition_images_mv)
+            images, _, idxs = prepare_condition_images_mv(
+                image, self.image_size, border_ratio)
+            cond = self.encode_cond(images[None], idxs[None])
+        else:
+            if recenter:
+                from motion324_tpu_torch.hy3dgen.preprocess_image import (
+                    prepare_condition_image)
+                image, _ = prepare_condition_image(image, self.image_size,
+                                                   border_ratio)
+            cond = self.encode_cond(self.prepare_image(image))
+        cond_pair = torch.cat([cond, torch.zeros_like(cond)])
+        self._sync()
+        times["conditioner"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        gen = torch.Generator(self.device).manual_seed(seed)
+        latents = torch.randn(1, self.num_latents, self.latent_dim,
+                              generator=gen, device=self.device)
+        latents = self.denoise(latents, cond_pair,
+                               flow_match_sigmas(num_inference_steps),
+                               float(guidance_scale))
+        self._sync()
+        times["denoise"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        processed = self.vae_decode(latents)
+        self._sync()
+        times["vae_decode"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        kw = dict(resolution=octree_resolution, box_v=box_v, chunk=num_chunks)
+        if enable_flashvdm:
+            grid, chunks = decode_volume_flashvdm(self.vae, processed,
+                                                  topk=flashvdm_topk, **kw)
+        else:
+            decode = decode_volume_hierarchical if hierarchical else decode_volume
+            grid, chunks = decode(self.vae.query, processed, **kw)
+        times["volume_decode"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        verts, faces = native.marching_cubes(
+            grid, iso=mc_level,
+            bounds=((-box_v, -box_v, -box_v), (box_v, box_v, box_v)))
+        times["marching_cubes"] = time.perf_counter() - t0
+        self.last_run = {"seconds": times, "query_chunks": chunks}
+        return TriMesh(vertices=verts, faces=faces.astype(np.int64))

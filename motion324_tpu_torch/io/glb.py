@@ -19,7 +19,7 @@ from typing import Any
 
 import numpy as np
 
-__all__ = ["load_glb", "export_animated_glb", "load_animated_glb"]
+__all__ = ["load_glb", "export_glb", "export_animated_glb", "load_animated_glb"]
 
 _MAGIC = 0x46546C67
 _JSON_CHUNK = 0x4E4F534A
@@ -388,6 +388,24 @@ def _base_mesh_json(b: _BinBuilder, vertices, faces, uv=None, texture=None,
             "metallicFactor": 0.0, "roughnessFactor": 1.0}}]
         prim["material"] = 0
     return gltf, prim
+
+
+def export_glb(path: str, vertices, faces, uv=None, texture=None,
+               vertex_colors=None) -> None:
+    """Write a static mesh (optionally with UVs and a texture) as GLB."""
+    b = _BinBuilder()
+    gltf, prim = _base_mesh_json(b, np.asarray(vertices, np.float32),
+                                 np.asarray(faces), uv, texture, vertex_colors)
+    gltf.update({
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0, "name": "mesh"}],
+        "meshes": [{"primitives": [prim]}],
+        "buffers": [{"byteLength": b.offset}],
+        "bufferViews": b.views,
+        "accessors": b.accessors,
+    })
+    _write_glb(path, gltf, b"".join(b.parts))
 
 
 def export_animated_glb(path: str, vertices, faces, trajectories, fps: int = 12,

@@ -1,11 +1,18 @@
-"""DINOv2 ViT-B/14 image encoder (frozen feature extractor).
+"""DINOv2 ViT/14 image encoder (frozen feature extractor).
 
 Parameter names follow torch-hub ``dinov2_vitb14`` (``patch_embed.proj``,
 ``blocks.{i}.attn.qkv``, ``ls1.gamma`` ...). Patchify conv -> CLS token ->
 position table resized from the 37 x 37 grid of the 518-px pretraining
 resolution (bicubic, antialiased, as DINOv2's ``interpolate_pos_encoding``)
 -> pre-norm blocks with LayerScale (LayerNorm eps 1e-6 with bias) -> final
-LayerNorm. Returns the patch tokens (CLS dropped).
+LayerNorm. Returns the patch tokens (CLS dropped), or ``[CLS | patches]``
+with ``keep_cls``.
+
+``mlp_type="mlp"`` is the ViT-S/B/L feed-forward (``mlp.fc1`` / ``mlp.fc2``,
+GELU), the motion model's ViT-B/14; ``"swiglu"`` is the DINOv2-giant one of
+the shape-generation conditioner (torch-hub ``SwiGLUFFNFused``: ``mlp.w12``
+of width 2 x hidden, ``silu(h1) * h2``, ``mlp.w3``; hidden
+``((int(4 d * 2/3) + 7) // 8) * 8``, 4 096 at d = 1 536).
 """
 
 from __future__ import annotations
@@ -61,15 +68,38 @@ class _Mlp(nn.Module):
         return self.fc2(self.act(self.fc1(x)))
 
 
+class _SwiGLU(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = Linear(dim, 2 * hidden)
+        self.w3 = Linear(hidden, dim)
+
+    def forward(self, x):
+        h1, h2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(h1) * h2)
+
+
+def swiglu_hidden(dim: int, mlp_ratio: int = 4) -> int:
+    """The SwiGLU feed-forward's hidden width: 2/3 of ``mlp_ratio * dim``,
+    rounded up to a multiple of 8."""
+    return ((int(dim * mlp_ratio * 2 / 3) + 7) // 8) * 8
+
+
 class _Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
-                 attn_backend: str | None):
+                 attn_backend: str | None, mlp_type: str = "mlp"):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = _Attention(dim, num_heads, attn_backend)
         self.ls1 = _LayerScale(dim)
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = _Mlp(dim, dim * mlp_ratio)
+        if mlp_type == "swiglu":
+            self.mlp = _SwiGLU(dim, swiglu_hidden(dim, mlp_ratio))
+        elif mlp_type == "mlp":
+            self.mlp = _Mlp(dim, dim * mlp_ratio)
+        else:
+            raise ValueError(f"mlp_type must be 'mlp' or 'swiglu', got "
+                             f"{mlp_type!r}")
         self.ls2 = _LayerScale(dim)
 
     def forward(self, x):
@@ -85,21 +115,25 @@ class _PatchEmbed(nn.Module):
 
 class DinoViT(nn.Module):
     """Frozen DINOv2 encoder: ``(B, H, W, 3)`` in [0, 1] ->
-    ``(B, (H/14)*(W/14), C)`` patch tokens, computed in the images' dtype."""
+    ``(B, (H/14)*(W/14), C)`` patch tokens (``(B, 1 + P, C)`` with
+    ``keep_cls``), computed in the images' dtype."""
 
     def __init__(self, embed_dim: int = 768, depth: int = 12,
                  num_heads: int = 12, patch_size: int = 14,
                  native_grid: int = 37, mlp_ratio: int = 4,
-                 attn_backend: str | None = None):
+                 attn_backend: str | None = None, mlp_type: str = "mlp",
+                 keep_cls: bool = False):
         super().__init__()
+        self.embed_dim = embed_dim
         self.patch_size = patch_size
         self.native_grid = native_grid
+        self.keep_cls = keep_cls
         self.patch_embed = _PatchEmbed(embed_dim, patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, 1 + native_grid ** 2, embed_dim))
         self.blocks = nn.ModuleList(
-            _Block(embed_dim, num_heads, mlp_ratio, attn_backend)
+            _Block(embed_dim, num_heads, mlp_ratio, attn_backend, mlp_type)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim, eps=1e-6)
 
@@ -129,4 +163,5 @@ class DinoViT(nn.Module):
         x = torch.cat([cls.expand(b, -1, -1), x], dim=1)
         for blk in self.blocks:
             x = blk(x)
-        return self.norm(x)[:, 1:]
+        x = self.norm(x)
+        return x if self.keep_cls else x[:, 1:]

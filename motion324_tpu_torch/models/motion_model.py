@@ -208,13 +208,14 @@ def init_weights(model: nn.Module, gen: torch.Generator) -> None:
     """Seeded random weights with the JAX package's initialisers: Linear and
     Conv kernels lecun-normal (std 1/sqrt(fan_in)), biases 0, norm scales 1,
     learnable/special tokens N(0, 1), DINO position table N(0, 0.02), CLS 0,
-    LayerScale 1e-5. Draws in ``named_parameters`` order."""
+    LayerScale 1e-5. Draws in ``named_parameters`` order, on the
+    generator's device, and copies into each parameter's dtype."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("learnable_tokens", "special_token_0", "special_token_rest"):
-            p.copy_(torch.randn(p.shape, generator=gen))
+            p.copy_(torch.randn(p.shape, generator=gen, device=gen.device))
         elif leaf == "pos_embed":
-            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+            p.copy_(torch.randn(p.shape, generator=gen, device=gen.device) * 0.02)
         elif leaf == "cls_token" or leaf == "bias":
             p.zero_()
         elif leaf == "gamma":
@@ -223,4 +224,5 @@ def init_weights(model: nn.Module, gen: torch.Generator) -> None:
             p.fill_(1.0)
         else:
             fan_in = math.prod(p.shape[1:])
-            p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(fan_in))
+            p.copy_(torch.randn(p.shape, generator=gen, device=gen.device)
+                    / math.sqrt(fan_in))

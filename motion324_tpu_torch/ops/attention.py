@@ -3,11 +3,17 @@
 Routing follows the KV and query lengths, with the thresholds of the JAX
 package (``motion324_tpu/ops/attention.py``):
 
-- KV >= 1024: K1, the flash kernel (online softmax over KV tiles);
+- KV >= 1024: the flash route;
 - 128 <= KV < 1024 and Sq >= 128: K2, the head-folded kernel, when the
-  padded logit tile (Sq to 16s, KV to 128s) is at most 512 x 512, else K1;
+  padded logit tile (Sq to 16s, KV to 128s) is at most 512 x 512, else the
+  flash route (the ShapeVAE volume query: 8 192 points x 512 latents);
 - otherwise (tiny KV, e.g. decoding points against 64 mesh tokens): plain
   PyTorch.
+
+The flash route launches K6, the single-KV kernel, where the KV fits one
+block (KV 1024 itself, and the volume query's 512), else K1, the online
+softmax over KV tiles (:func:`~motion324_tpu_torch.ops.flash_attention.
+single_kv_route`).
 
 A kernel route on a CUDA tensor launches the kernel; on a CPU tensor the
 kernel's wrapper computes its plain version. ``backend="plain"`` forces the

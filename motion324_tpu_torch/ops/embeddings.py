@@ -1,5 +1,7 @@
-"""Point and video positional embeddings, all in float32.
+"""Point, video and frequency positional embeddings, all in float32.
 
+- :func:`frequency_embed`: per-coordinate ``[x, sin(f x), cos(f x)]`` with
+  octave frequencies (the ShapeVAE's query-point embedding).
 - :func:`point_embed_basis`: block-diagonal 3D Fourier basis for the point
   embedding (frequencies ``pi * 2^j`` per axis).
 - :func:`apply_point_basis`: ``(..., 3)`` points -> ``[sin, cos, xyz]``.
@@ -10,12 +12,39 @@
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["point_embed_basis", "apply_point_basis", "video_pos_embed",
-           "resize_pos_embed"]
+__all__ = ["frequency_embed", "point_embed_basis", "apply_point_basis",
+           "video_pos_embed", "resize_pos_embed"]
+
+
+def frequency_embed(x: torch.Tensor, num_freqs: int = 6, logspace: bool = True,
+                    include_input: bool = True,
+                    include_pi: bool = True) -> torch.Tensor:
+    """``x[..., i] -> [x_i?, sin(f_0 x_i) ... sin(f_{N-1} x_i), cos(...)]``
+    with ``f_j = 2^j`` (logspace) or ``linspace(1, 2^{N-1})``, times pi with
+    ``include_pi``; output width ``D * (2 num_freqs + include_input)``. Runs
+    in x's dtype: pass f32 where the frequencies are high (the ShapeVAE's
+    reach 2^7 pi, about 402 rad, where bf16 coordinates lose a radian)."""
+    if num_freqs <= 0:
+        return x
+    # made on x's device: a host table would cost a host-to-device copy,
+    # which waits for the stream, on every call
+    if logspace:
+        freqs = torch.exp2(torch.arange(num_freqs, dtype=x.dtype,
+                                        device=x.device))
+    else:
+        freqs = torch.linspace(1.0, 2.0 ** (num_freqs - 1), num_freqs,
+                               dtype=x.dtype, device=x.device)
+    if include_pi:
+        freqs = freqs * math.pi
+    emb = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)
+    parts = ([x] if include_input else []) + [torch.sin(emb), torch.cos(emb)]
+    return torch.cat(parts, dim=-1)
 
 
 def point_embed_basis(hidden_dim: int = 48) -> np.ndarray:

@@ -1,13 +1,21 @@
-"""K1 (forward) and K3 / K4 (backward): flash attention over ``(B, H, S, 64)``.
+"""K1 and K6 (forward), K3 / K4 (backward): flash attention over
+``(B, H, S, 64)``.
+
+The forward takes one of two kernels by the KV length, with the JAX
+package's rule (:func:`single_kv_route`): K6, ``csrc/flash_single_kv.cu``,
+when the KV padded to its block fits one block of at most 1 024 keys (KV in
+[1, 256] and [385, 1024]); K1, ``csrc/flash_fwd.cu``, the online softmax
+over KV tiles, otherwise.
 
 :func:`flash_attention` is differentiable. A call that needs no gradient
-launches the forward kernel ``csrc/flash_fwd.cu`` (counted in
-``flash_attention.launches``). A call with an input that requires grad
-multiplies q by the logit scale in q's dtype (autograd carries ``dq * scale``)
-and runs :class:`FlashAttentionFn` on the scaled q: its forward launches the
-same kernel with the f32 log-sum-exp output (``flash_attention.lse_launches``)
-and saves ``(q, k, v, o, lse)``; its backward is :func:`flash_attention_bwd`,
-which launches K3 for KV <= 4096 and K4 beyond (``csrc/flash_bwd.cu``;
+launches the forward kernel (counted in ``flash_attention.launches`` for K1,
+``flash_attention.single_kv_launches`` for K6). A call with an input that
+requires grad multiplies q by the logit scale in q's dtype (autograd carries
+``dq * scale``) and runs :class:`FlashAttentionFn` on the scaled q: its
+forward launches the same kernel with the f32 log-sum-exp output
+(``flash_attention.lse_launches``, ``.single_kv_lse_launches``) and saves
+``(q, k, v, o, lse)``; its backward is :func:`flash_attention_bwd`, which
+launches K3 for KV <= 4096 and K4 beyond (``csrc/flash_bwd.cu``;
 ``flash_attention_bwd.fused_launches`` and ``.two_pass_launches``). On a CPU
 tensor every step computes its plain version instead.
 """
@@ -23,7 +31,8 @@ from motion324_tpu_torch.ops import _build
 
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_bwd", "flash_attention_bwd_reference",
-           "FlashAttentionFn", "FUSED_BWD_MAX_KV"]
+           "FlashAttentionFn", "FUSED_BWD_MAX_KV", "SINGLE_KV_MAX",
+           "single_kv_route"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -31,6 +40,54 @@ _libs: dict[str, ctypes.CDLL] = {}
 # KV lengths up to this take the fused backward (K3), longer ones the
 # two-pass backward (K4), as in the JAX package
 FUSED_BWD_MAX_KV = 4096
+# the largest KV block of the single-KV forward (K6), and the KV block size
+# the JAX package's flash forward aims at
+SINGLE_KV_MAX = 1024
+_KV_BLOCK_TARGET = 1024
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _pick_kv_block(seq: int) -> int:
+    """The JAX package's KV block (``_pick_block`` with granule 128): the
+    largest pad-free 128-multiple divisor of the padded length in
+    [max(128, target/2), target]; failing that, above the target, the
+    largest pad-free 8-multiple divisor in (target, 2 target]; else the
+    target, or below it the power of two (>= 128) that pads least. The
+    divisor wins only where it pads no more than that fallback."""
+    target = _KV_BLOCK_TARGET
+    seq_g = _ceil_to(seq, 128)
+    exact = 0
+    for d in range(max(128, target // 2), min(seq_g, target) + 1, 128):
+        if seq_g % d == 0:
+            exact = d
+    if not exact and seq > target:
+        seq_8 = _ceil_to(seq, 8)
+        for d in range(_ceil_to(target + 8, 8), min(seq_8, 2 * target) + 1, 8):
+            if seq_8 % d == 0:
+                exact = d
+    if seq >= target:
+        fall = target
+    else:
+        fall, b = 128, 256
+        while b <= target:
+            if _ceil_to(seq, b) <= _ceil_to(seq, fall):
+                fall = b
+            b *= 2
+    if exact and _ceil_to(seq, exact) <= _ceil_to(seq, fall):
+        return exact
+    return fall
+
+
+def single_kv_route(sk: int) -> bool:
+    """Whether a flash call over ``sk`` keys takes K6: the KV padded to its
+    block is that one block, of at most ``SINGLE_KV_MAX`` keys, as in the
+    JAX package's ``_fwd``. True for KV in [1, 256] and [385, 1024]; KV in
+    [257, 384] streams through K1 in blocks of 128, as does KV > 1024."""
+    bkv = _pick_kv_block(sk)
+    return _ceil_to(sk, bkv) <= min(bkv, SINGLE_KV_MAX)
 
 
 def scale_in_dtype(q: torch.Tensor, scale: float | None) -> float:
@@ -45,7 +102,11 @@ def attention_reference(q, k, v, scale: float, with_lse: bool = False):
     """The kernels' math in plain PyTorch over ``(..., S, D)``: q pre-scaled
     in its own dtype, f32 logits, unnormalised ``exp(s - max)`` rounded to
     v's dtype for the second product, f32 sums, division last. With
-    ``with_lse`` also returns the f32 log-sum-exp of each row, ``(..., Sq)``."""
+    ``with_lse`` also returns the f32 log-sum-exp of each row, ``(..., Sq)``.
+
+    The max is the row's max over all keys, so this is exactly K6's
+    arithmetic (one max before any exp, no rescale); K1 and K2 compute the
+    same function with a running max over KV tiles."""
     s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -132,29 +193,57 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _forward(q, k, v, scale: float, with_lse: bool):
-    """``(out, lse or None)``: the kernel on CUDA, the plain version on CPU."""
-    if q.device.type == "cpu":
-        if not with_lse:
-            return flash_attention_reference(q, k, v, scale=scale), None
-        return flash_attention_reference(q, k, v, scale=scale, with_lse=True)
+def _launch_fwd(name: str, q, k, v, scale: float, with_lse: bool):
+    """Launch forward kernel ``name`` (``flash_fwd`` or ``flash_single_kv``,
+    one C signature) on CUDA tensors; returns ``(out, lse or None)``."""
     _check(q, k, v)
     b, h, sq, _ = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     with torch.cuda.device(q.device):
-        rc = _load("flash_fwd", _FWD_ARGS).m324_flash_fwd(
+        rc = getattr(_load(name, _FWD_ARGS), f"m324_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b * h, sq, k.shape[2],
             scale, _DTYPES[q.dtype], _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out, lse
+
+
+def _forward_k1(q, k, v, scale: float, with_lse: bool):
+    """K1 on CUDA tensors, whatever the KV length."""
+    out = _launch_fwd("flash_fwd", q, k, v, scale, with_lse)
     if with_lse:
         flash_attention.lse_launches += 1
     else:
         flash_attention.launches += 1
-    return out, lse
+    return out
+
+
+def _forward_single_kv(q, k, v, scale: float, with_lse: bool):
+    """K6 on CUDA tensors; raises past ``SINGLE_KV_MAX`` keys."""
+    if k.shape[2] > SINGLE_KV_MAX:
+        raise ValueError(f"the single-KV kernel takes at most {SINGLE_KV_MAX} "
+                         f"keys, got {k.shape[2]}")
+    out = _launch_fwd("flash_single_kv", q, k, v, scale, with_lse)
+    if with_lse:
+        flash_attention.single_kv_lse_launches += 1
+    else:
+        flash_attention.single_kv_launches += 1
+    return out
+
+
+def _forward(q, k, v, scale: float, with_lse: bool):
+    """``(out, lse or None)``: on CUDA, K6 where :func:`single_kv_route`
+    takes it, else K1; on CPU the plain version."""
+    if q.device.type == "cpu":
+        if not with_lse:
+            return flash_attention_reference(q, k, v, scale=scale), None
+        return flash_attention_reference(q, k, v, scale=scale, with_lse=True)
+    if single_kv_route(k.shape[2]):
+        return _forward_single_kv(q, k, v, scale, with_lse)
+    return _forward_k1(q, k, v, scale, with_lse)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do):
@@ -238,3 +327,5 @@ def flash_attention(q, k, v, *, scale: float | None = None) -> torch.Tensor:
 
 flash_attention.launches = 0
 flash_attention.lse_launches = 0
+flash_attention.single_kv_launches = 0
+flash_attention.single_kv_lse_launches = 0

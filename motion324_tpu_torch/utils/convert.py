@@ -9,6 +9,14 @@
 - :func:`load_reference_state_dict`: a reference ``.pt`` checkpoint (or its
   state dict) into a :class:`MotionLatentModel`, which keeps the reference
   names, after dropping the keys that the port computes or does not use.
+- :func:`shape_params_from_jax`: the JAX ``ShapeGenPipeline.params``
+  (``dit``, ``vae``, ``conditioner``) -> the port's three state dicts.
+- :func:`hunyuan_ckpt_state_dicts`: the released single-file shape
+  checkpoint (``{'model', 'vae', 'conditioner'}``) -> the port's three state
+  dicts and the dims they imply. The DiT and VAE modules keep the reference
+  names, so ``model`` and the decoder part of ``vae`` load as they are; the
+  conditioner's HF DINOv2 names (separate q/k/v) map through
+  :func:`dinov2_hf_state_dict`.
 """
 
 from __future__ import annotations
@@ -16,7 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "load_reference_state_dict"]
+__all__ = ["params_from_jax", "load_reference_state_dict",
+           "shape_params_from_jax", "dinov2_hf_state_dict",
+           "hunyuan_ckpt_state_dicts"]
 
 
 def _t(a) -> torch.Tensor:
@@ -69,21 +79,28 @@ def _layers(stacked: dict) -> list:
 
 
 def _dino(out: dict, prefix: str, p: dict) -> None:
+    """A DINOv2 ViT's params under ``prefix`` (empty for none); the MLP or
+    the SwiGLU (``mlp_w12`` / ``mlp_w3``) feed-forward."""
+    prefix = f"{prefix}." if prefix else ""
     kern = np.asarray(p["patch_embed"]["kernel"])
-    out[f"{prefix}.patch_embed.proj.weight"] = _t(kern.transpose(3, 2, 0, 1))
-    out[f"{prefix}.patch_embed.proj.bias"] = _t(p["patch_embed"]["bias"])
-    out[f"{prefix}.cls_token"] = _t(p["cls_token"])
-    out[f"{prefix}.pos_embed"] = _t(p["pos_embed"])
-    _norm(out, f"{prefix}.norm", p["norm"])
+    out[f"{prefix}patch_embed.proj.weight"] = _t(kern.transpose(3, 2, 0, 1))
+    out[f"{prefix}patch_embed.proj.bias"] = _t(p["patch_embed"]["bias"])
+    out[f"{prefix}cls_token"] = _t(p["cls_token"])
+    out[f"{prefix}pos_embed"] = _t(p["pos_embed"])
+    _norm(out, f"{prefix}norm", p["norm"])
     for i, blk in enumerate(_layers(p["blocks"])):
-        b = f"{prefix}.blocks.{i}"
+        b = f"{prefix}blocks.{i}"
         _norm(out, f"{b}.norm1", blk["norm1"])
         _dense(out, f"{b}.attn.qkv", blk["attn"]["qkv"])
         _dense(out, f"{b}.attn.proj", blk["attn"]["proj"])
         out[f"{b}.ls1.gamma"] = _t(blk["ls1_gamma"])
         _norm(out, f"{b}.norm2", blk["norm2"])
-        _dense(out, f"{b}.mlp.fc1", blk["mlp_fc1"])
-        _dense(out, f"{b}.mlp.fc2", blk["mlp_fc2"])
+        if "mlp_w12" in blk:
+            _dense(out, f"{b}.mlp.w12", blk["mlp_w12"])
+            _dense(out, f"{b}.mlp.w3", blk["mlp_w3"])
+        else:
+            _dense(out, f"{b}.mlp.fc1", blk["mlp_fc1"])
+            _dense(out, f"{b}.mlp.fc2", blk["mlp_fc2"])
         out[f"{b}.ls2.gamma"] = _t(blk["ls2_gamma"])
 
 
@@ -134,3 +151,159 @@ def load_reference_state_dict(model: torch.nn.Module, sd) -> None:
             continue
         clean[k] = v if isinstance(v, torch.Tensor) else _t(v)
     model.load_state_dict(clean)
+
+
+# --------------------------------------------------------------------------- #
+# shape generation: Hunyuan3D-2 DiT, ShapeVAE, DINOv2-giant conditioner
+# --------------------------------------------------------------------------- #
+def _dit_from_jax(p: dict) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    _dense(out, "latent_in", p["latent_in"])
+    _dense(out, "cond_in", p["cond_in"])
+    _dense(out, "time_in.in_layer", p["time_in"]["in_layer"])
+    _dense(out, "time_in.out_layer", p["time_in"]["out_layer"])
+    doubles = p["double_blocks"]["block"]
+    for i in range(len(np.asarray(doubles["img_proj"]["kernel"]))):
+        blk = _unstack(doubles, i)
+        b = f"double_blocks.{i}"
+        for s in ("img", "txt"):
+            _dense(out, f"{b}.{s}_mod.lin", blk[f"{s}_mod"]["lin"])
+            attn = blk[f"{s}_attn"]
+            _dense(out, f"{b}.{s}_attn.qkv", attn["qkv"])
+            out[f"{b}.{s}_attn.norm.query_norm.scale"] = _t(attn["q_norm"]["scale"])
+            out[f"{b}.{s}_attn.norm.key_norm.scale"] = _t(attn["k_norm"]["scale"])
+            _dense(out, f"{b}.{s}_attn.proj", blk[f"{s}_proj"])
+            _dense(out, f"{b}.{s}_mlp.0", blk[f"{s}_mlp_fc1"])
+            _dense(out, f"{b}.{s}_mlp.2", blk[f"{s}_mlp_fc2"])
+    singles = p["single_blocks"]["block"]
+    for i in range(len(np.asarray(singles["linear1"]["kernel"]))):
+        blk = _unstack(singles, i)
+        b = f"single_blocks.{i}"
+        _dense(out, f"{b}.modulation.lin", blk["modulation"]["lin"])
+        _dense(out, f"{b}.linear1", blk["linear1"])
+        _dense(out, f"{b}.linear2", blk["linear2"])
+        out[f"{b}.norm.query_norm.scale"] = _t(blk["q_norm"]["scale"])
+        out[f"{b}.norm.key_norm.scale"] = _t(blk["k_norm"]["scale"])
+    _dense(out, "final_layer.adaLN_modulation.1", p["final_mod"])
+    _dense(out, "final_layer.linear", p["final_linear"])
+    return out
+
+
+def _vae_from_jax(p: dict) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    _dense(out, "post_kl", p["post_kl"])
+    for i, blk in enumerate(_layers(p["blocks"])):
+        b = f"transformer.resblocks.{i}"
+        _norm(out, f"{b}.ln_1", blk["ln_1"])
+        _dense(out, f"{b}.attn.c_qkv", blk["c_qkv"])
+        _dense(out, f"{b}.attn.c_proj", blk["c_proj"])
+        _norm(out, f"{b}.ln_2", blk["ln_2"])
+        _dense(out, f"{b}.mlp.c_fc", blk["c_fc"])
+        _dense(out, f"{b}.mlp.c_proj", blk["c_proj_mlp"])
+    g, x = "geo_decoder", "geo_decoder.cross_attn_decoder"
+    geo = p["geo_decoder"]
+    _dense(out, f"{g}.query_proj", p["query_proj"])
+    for name in ("ln_1", "ln_2", "ln_3"):
+        _norm(out, f"{x}.{name}", geo[name])
+    for ours, theirs in (("attn.c_q", "c_q"), ("attn.c_kv", "c_kv"),
+                         ("attn.c_proj", "c_proj"), ("mlp.c_fc", "c_fc"),
+                         ("mlp.c_proj", "c_proj_mlp")):
+        _dense(out, f"{x}.{ours}", geo[theirs])
+    _norm(out, f"{g}.ln_post", p["ln_post"])
+    _dense(out, f"{g}.output_proj", p["output_proj"])
+    return out
+
+
+def shape_params_from_jax(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX ``ShapeGenPipeline.params`` (leaves as numpy arrays) -> the
+    port's ``{'dit', 'vae', 'conditioner'}`` state dicts (float32). A
+    multiview conditioner's ViT lands under ``dino.``."""
+    unwrap = lambda t: t.get("params", t)
+    cond = unwrap(tree["conditioner"])
+    out: dict[str, torch.Tensor] = {}
+    if "dino" in cond:
+        _dino(out, "dino", cond["dino"])
+    else:
+        _dino(out, "", cond)
+    return {"dit": _dit_from_jax(unwrap(tree["dit"])),
+            "vae": _vae_from_jax(unwrap(tree["vae"])),
+            "conditioner": out}
+
+
+def dinov2_hf_state_dict(sd: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """An HF ``Dinov2Model`` state dict (separate q/k/v, ``layer_scale1``,
+    ``mlp.weights_in`` for SwiGLU) -> the port's DinoViT names under
+    ``prefix``; the fused qkv stacks q, k and v along the output axis."""
+    t = lambda k: _t(sd[k].float().numpy() if isinstance(sd[k], torch.Tensor)
+                     else sd[k])
+    out = {f"{prefix}patch_embed.proj.weight":
+               t("embeddings.patch_embeddings.projection.weight"),
+           f"{prefix}patch_embed.proj.bias":
+               t("embeddings.patch_embeddings.projection.bias"),
+           f"{prefix}cls_token": t("embeddings.cls_token"),
+           f"{prefix}pos_embed": t("embeddings.position_embeddings"),
+           f"{prefix}norm.weight": t("layernorm.weight"),
+           f"{prefix}norm.bias": t("layernorm.bias")}
+    i = 0
+    while f"encoder.layer.{i}.norm1.weight" in sd:
+        h, b = f"encoder.layer.{i}", f"{prefix}blocks.{i}"
+        a = f"{h}.attention.attention"
+        for kind in ("weight", "bias"):
+            out[f"{b}.attn.qkv.{kind}"] = torch.cat(
+                [t(f"{a}.{n}.{kind}") for n in ("query", "key", "value")])
+            out[f"{b}.attn.proj.{kind}"] = t(f"{h}.attention.output.dense.{kind}")
+            for n in ("norm1", "norm2"):
+                out[f"{b}.{n}.{kind}"] = t(f"{h}.{n}.{kind}")
+            if f"{h}.mlp.weights_in.weight" in sd:
+                out[f"{b}.mlp.w12.{kind}"] = t(f"{h}.mlp.weights_in.{kind}")
+                out[f"{b}.mlp.w3.{kind}"] = t(f"{h}.mlp.weights_out.{kind}")
+            else:
+                out[f"{b}.mlp.fc1.{kind}"] = t(f"{h}.mlp.fc1.{kind}")
+                out[f"{b}.mlp.fc2.{kind}"] = t(f"{h}.mlp.fc2.{kind}")
+        out[f"{b}.ls1.gamma"] = t(f"{h}.layer_scale1.lambda1")
+        out[f"{b}.ls2.gamma"] = t(f"{h}.layer_scale2.lambda1")
+        i += 1
+    return out
+
+
+def _count(sd: dict, fmt: str) -> int:
+    i = 0
+    while any(k.startswith(fmt.format(i)) for k in sd):
+        i += 1
+    return i
+
+
+def hunyuan_ckpt_state_dicts(ckpt: dict, mv: bool = False):
+    """The released checkpoint's ``{'model', 'vae', 'conditioner'}``
+    sub-dicts -> ``(state_dicts, dims)``: the port's ``dit``, ``vae`` (its
+    decoder keys) and, where present, ``conditioner`` state dicts (float32),
+    and the :class:`ShapeGenPipeline` dims they imply (depths, widths,
+    latent and condition dims, SwiGLU or MLP feed-forward, position grid).
+    With ``mv`` the conditioner's ViT lands under ``dino.``."""
+    f32 = lambda sd: {k: v.float() for k, v in sd.items()}
+    dit, vae = f32(ckpt["model"]), f32(ckpt["vae"])
+    dims = {
+        "dit_depth": _count(dit, "double_blocks.{}."),
+        "dit_single": _count(dit, "single_blocks.{}."),
+        "dit_hidden": dit["latent_in.weight"].shape[0],
+        "latent_dim": dit["latent_in.weight"].shape[1],
+        "cond_dim": dit["cond_in.weight"].shape[1],
+        "vae_layers": _count(vae, "transformer.resblocks.{}."),
+        "vae_width": vae["post_kl.weight"].shape[0],
+    }
+    # head count from the per-head QK-RMSNorm scale width
+    head_dim = dit["double_blocks.0.img_attn.norm.query_norm.scale"].shape[0]
+    dims["dit_heads"] = dims["dit_hidden"] // head_dim
+    out = {"dit": dit, "vae": vae}
+    if "conditioner" in ckpt:
+        cond = ckpt["conditioner"]
+        prefix = "main_image_encoder.model."
+        dino = {k[len(prefix):]: v for k, v in cond.items()
+                if k.startswith(prefix)} or dict(cond)
+        dims["cond_depth"] = _count(dino, "encoder.layer.{}.")
+        dims["cond_mlp_type"] = ("swiglu" if any("weights_in" in k for k in dino)
+                                 else "mlp")
+        n_pos = dino["embeddings.position_embeddings"].shape[1]
+        dims["cond_native_grid"] = int(round((n_pos - 1) ** 0.5))
+        out["conditioner"] = dinov2_hf_state_dict(dino, "dino." if mv else "")
+    return out, dims

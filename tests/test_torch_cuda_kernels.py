@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 flash and K2 head-folded forwards, with and
-without the LSE output; K3 / K4 flash and K5 head-folded backwards) against
+"""The port's CUDA kernels (K1 flash, K6 single-KV and K2 head-folded
+forwards, with and without the LSE output; K3 / K4 flash and K5 head-folded
+backwards) against
 their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one. This file imports
@@ -17,7 +18,8 @@ from motion324_tpu_torch.ops.attention import (mha_reference,
                                                select_route)
 from motion324_tpu_torch.ops.flash_attention import (
     FlashAttentionFn, flash_attention, flash_attention_bwd,
-    flash_attention_bwd_reference, flash_attention_reference)
+    _forward, flash_attention_bwd_reference, flash_attention_reference,
+    single_kv_route)
 from motion324_tpu_torch.ops.folded_attention import (
     FoldedAttentionFn, folded_attention, folded_attention_bwd,
     folded_attention_bwd_reference, folded_attention_reference)
@@ -87,19 +89,22 @@ def test_cuda_folded_matches_plain(cuda, dtype, sq, sk):
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,sk", [(324, 324), (972, 972), (64, 1500)])
 def test_cuda_dispatcher_routes_to_the_kernels(cuda, sq, sk):
-    """(B, S, H, D) through multi_head_attention: K2 for a frame, K1 for a
-    3-frame window (the JAX package's K6 route) and for long KV."""
+    """(B, S, H, D) through multi_head_attention: K2 for a frame, K6 for a
+    3-frame window (its KV fits one block) and K1 for long KV."""
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn(2, sq, 3, 64, generator=g, device=cuda).to(torch.bfloat16)
     k = torch.randn(2, sk, 3, 64, generator=g, device=cuda).to(torch.bfloat16)
     v = torch.randn(2, sk, 3, 64, generator=g, device=cuda).to(torch.bfloat16)
-    counts = (flash_attention.launches, folded_attention.launches)
+    counts = (flash_attention.launches, flash_attention.single_kv_launches,
+              folded_attention.launches)
     out = multi_head_attention(q, k, v)
     torch.cuda.synchronize()
-    flash_n = flash_attention.launches - counts[0]
-    folded_n = folded_attention.launches - counts[1]
-    want_route = select_route(sq, sk)
-    assert (flash_n, folded_n) == ((1, 0) if want_route == "flash" else (0, 1))
+    got = (flash_attention.launches - counts[0],
+           flash_attention.single_kv_launches - counts[1],
+           folded_attention.launches - counts[2])
+    want = {"folded": (0, 0, 1), "plain": (0, 0, 0)}.get(
+        select_route(sq, sk), (0, 1, 0) if single_kv_route(sk) else (1, 0, 0))
+    assert got == want
     assert_matches_plain(out, mha_reference(q, k, v))
 
 
@@ -197,10 +202,46 @@ def test_cuda_attention_carries_gradients(cuda, sq, sk):
                .to(torch.bfloat16).requires_grad_() for n in (sq, sk, sk))
     out = multi_head_attention(q, k, v)
     fn = FlashAttentionFn if select_route(sq, sk) == "flash" else FoldedAttentionFn
-    assert isinstance(out.grad_fn, fn._backward_cls), type(out.grad_fn)
+    # the dispatcher reshapes or transposes the Function's output: search
+    # the graph below the output for the Function's node
+    nodes, seen = [out.grad_fn], []
+    while nodes:
+        node = nodes.pop()
+        seen.append(type(node))
+        nodes += [n for n, _ in node.next_functions if n is not None]
+    assert fn._backward_cls in seen, seen
     do = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
     got = torch.autograd.grad(out, (q, k, v), do)
     want = torch.autograd.grad(multi_head_attention(q, k, v, backend="plain"),
                                (q, k, v), do)
     for a, b in zip(got, want):
         assert_matches_plain(a, b)
+
+
+# K6 computes exactly the plain version's function (one max over all keys,
+# P rounded against it), so only the order of its f32 sums differs: it is
+# held to the same shares of max |plain| as K1, and lands further inside.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,sk", [(200, 200), (1000, 385), (130, 512),
+                                   (64, 1000), (70, 1024)])
+def test_cuda_single_kv_matches_plain(cuda, dtype, sq, sk):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(2, 3, sq, 64, generator=g, device=cuda).to(dtype)
+    k = torch.randn(2, 3, sk, 64, generator=g, device=cuda).to(dtype)
+    v = torch.randn(2, 3, sk, 64, generator=g, device=cuda).to(dtype)
+    assert single_kv_route(sk)
+    before = (flash_attention.launches, flash_attention.single_kv_launches,
+              flash_attention.single_kv_lse_launches)
+    out = flash_attention(q, k, v)
+    qs = q * 0.125
+    out_lse, lse = _forward(qs, k, v, 1.0, with_lse=True)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.single_kv_launches,
+            flash_attention.single_kv_lse_launches) == (
+                before[0], before[1] + 1, before[2] + 1)
+    want, want_lse = flash_attention_reference(qs, k, v, scale=1.0,
+                                               with_lse=True)
+    assert_matches_plain(out, flash_attention_reference(q, k, v))
+    assert_matches_plain(out_lse, want)
+    assert_matches_plain(lse, want_lse, rel=2.0 ** -14)

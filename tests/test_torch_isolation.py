@@ -68,6 +68,33 @@ def test_training_modules_load_neither_jax_nor_pil_nor_yaml(module):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+SHAPE_MODULES = [
+    "motion324_tpu_torch.hy3dgen.conditioner", "motion324_tpu_torch.hy3dgen.dit",
+    "motion324_tpu_torch.hy3dgen.vae", "motion324_tpu_torch.hy3dgen.volume",
+    "motion324_tpu_torch.hy3dgen.scheduler",
+    "motion324_tpu_torch.hy3dgen.preprocess_image",
+    "motion324_tpu_torch.hy3dgen.postprocess",
+    "motion324_tpu_torch.hy3dgen.shape_pipeline", "motion324_tpu_torch.native",
+    "motion324_tpu_torch.generate_assets"]
+
+
+@pytest.mark.parametrize("module", SHAPE_MODULES)
+def test_shape_modules_load_neither_jax_nor_cv2_nor_pil(module):
+    """Each shape-generation module alone: no JAX, and cv2 and PIL, which
+    the card's machine lacks, stay unloaded until a function needs them;
+    importing builds nothing."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'cv2'))\n"
+            "from motion324_tpu_torch import native\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad or native._lib is not None else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
