@@ -82,6 +82,11 @@ __device__ __forceinline__ void load_rows_bf16(bf16* smem, const bf16* g,
   }
 }
 
+// The default logit mask of WarpAttn::step: none.
+struct NoMask {
+  __device__ __forceinline__ void operator()(float (&)[8][4], int, int) const {}
+};
+
 // Per-warp state of the bf16 online softmax over 16 query rows.
 struct WarpAttn {
   uint32_t qf[4][4];  // Q A-fragments, one per 16-wide slice of the head dim
@@ -108,9 +113,13 @@ struct WarpAttn {
   }
 
   // One chunk of kKeys keys: k_s / v_s are (kKeys, kRow) in shared memory,
-  // keys at or past `nvalid` are masked.
+  // keys at or past `nvalid` are masked. `mask(s, g, t)` may set logits to
+  // kNegInf before the softmax (this thread's s[j][0..3]: keys 8j + 2t and
+  // 8j + 2t + 1 of rows g and g + 8); the default masks nothing.
+  template <typename Mask = NoMask>
   __device__ __forceinline__ void step(const bf16* k_s, const bf16* v_s,
-                                       int nvalid, int lane) {
+                                       int nvalid, int lane,
+                                       const Mask& mask = Mask()) {
     const int g = lane >> 2, t = lane & 3;
     float s[8][4];
 #pragma unroll
@@ -124,6 +133,7 @@ struct WarpAttn {
         mma_bf16_16816(s[j], qf[ks], b);
       }
     }
+    mask(s, g, t);
     if (nvalid < kKeys) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -227,13 +237,21 @@ constexpr int kScalarQ = kScalarWarps * kScalarRows;   // query rows per block
 constexpr int kScalarRow = kD + 1;                     // padded f32 row stride
 constexpr int kScalarSmemFloats = kScalarQ * kD + 2 * 32 * kScalarRow;
 
+// The default key mask of scalar_attend: every key of every row is kept.
+struct ScalarNoMask {
+  __device__ __forceinline__ bool operator()(int, int) const { return true; }
+};
+
 // q, k, v, out point at row 0 of one (batch, head); strides in elements.
 // `lse` (may be null) points at row 0 of this (batch, head) with row stride
-// `l_rs`.
+// `l_rs`. `keep(row, key)` may mask a (query row, key) pair; it is asked
+// only for keys below sk, and also for rows at or past sq.
+template <typename Mask = ScalarNoMask>
 __device__ __forceinline__ void scalar_attend(
     const float* q, const float* k, const float* v, float* out, float* lse,
     long long q_rs, long long k_rs, long long v_rs, long long o_rs,
-    long long l_rs, int sq, int sk, int row0, float scale, float* smem) {
+    long long l_rs, int sq, int sk, int row0, float scale, float* smem,
+    const Mask& keep = Mask()) {
   float* q_s = smem;
   float* k_s = q_s + kScalarQ * kD;
   float* v_s = k_s + 32 * kScalarRow;
@@ -263,7 +281,8 @@ __device__ __forceinline__ void scalar_attend(
       float s = 0.f;
 #pragma unroll 16
       for (int d = 0; d < kD; ++d) s = fmaf(qr[d], k_s[lane * kScalarRow + d], s);
-      if (kv0 + lane >= sk) s = kNegInf;
+      if (kv0 + lane >= sk || !keep(row0 + warp * kScalarRows + i, kv0 + lane))
+        s = kNegInf;
       float mx = s;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)

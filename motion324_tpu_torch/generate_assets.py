@@ -1,7 +1,8 @@
 """Batch image -> mesh generation with workload sharding, on the GPU.
 
     python -m motion324_tpu_torch.generate_assets --input-root data/ \
-        --output ./generated_assets [--N 4 --n 0] [--mv] [--device cpu]
+        --output ./generated_assets [--N 4 --n 0] [--mv] [--texture] \
+        [--device cpu]
 
 Scans ``<input-root>/*_processed/masked_rgb`` clips, splits them across
 ``--N`` shards by greedy size balancing, and for every ``--skip``'th frame
@@ -11,7 +12,13 @@ PNG/JPEG (needs PIL) or ``.npy`` arrays (H, W, 3|4) in [0, 1] or uint8.
 With ``--mv`` each clip's ``views/`` folder holds front/left/back/right
 images. The weights are random, drawn from seed 0. The recentering of the
 input image needs cv2; ``--no-recenter`` takes images as they are.
-``--texture`` is not ported yet.
+
+``--texture`` paints each cleaned mesh from its image with
+:class:`~motion324_tpu_torch.hy3dgen.paint_pipeline.PaintPipeline`: the
+multiview diffusion model when ``--paint-unet`` and ``--paint-vae`` name
+released HunyuanPaint weights (torch state dicts in the diffusers layout),
+else the weight-free reprojection synthesizer. A textured GLB encodes its
+texture with PIL; without PIL the GLB is not written.
 """
 
 from __future__ import annotations
@@ -85,9 +92,27 @@ def _mv_views(img_path: str) -> dict:
     return found
 
 
-def main(argv=None, pipeline=None) -> int:
+def _painter(args):
+    """The texture pipeline for ``--texture`` on ``--device``."""
+    from motion324_tpu_torch.hy3dgen.paint_pipeline import PaintPipeline
+    model = None
+    if args.paint_unet and args.paint_vae:
+        import torch
+
+        from motion324_tpu_torch.hy3dgen.paint_diffusion import \
+            MultiviewDiffusion
+        load = lambda path: torch.load(path, map_location="cpu",
+                                       weights_only=True)
+        model = MultiviewDiffusion.from_diffusers(
+            load(args.paint_unet), load(args.paint_vae), device=args.device)
+        print(f"loaded HunyuanPaint weights from {args.paint_unet}")
+    return PaintPipeline(multiview_model=model, device=args.device)
+
+
+def main(argv=None, pipeline=None, painter=None) -> int:
     """Run the CLI; ``pipeline`` replaces the release-width random-weight
-    :class:`ShapeGenPipeline` that is otherwise built on ``--device``."""
+    :class:`ShapeGenPipeline` that is otherwise built on ``--device``, and
+    ``painter`` the texture pipeline of ``--texture``."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--input-root", required=True)
     p.add_argument("--output", default="./generated_assets")
@@ -96,7 +121,14 @@ def main(argv=None, pipeline=None) -> int:
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--octree-resolution", type=int, default=384)
     p.add_argument("--max-faces", type=int, default=40000)
-    p.add_argument("--texture", action="store_true")
+    p.add_argument("--texture", action="store_true",
+                   help="paint each mesh from its image")
+    p.add_argument("--paint-unet", default=None,
+                   help="HunyuanPaint UNet2p5D state dict (.pt, diffusers "
+                        "layout); with --paint-vae the multiview diffusion "
+                        "synthesizer paints")
+    p.add_argument("--paint-vae", default=None,
+                   help="the SD AutoencoderKL state dict of the paint model")
     p.add_argument("--skip", type=int, default=256,
                    help="a mesh for every N-th frame of each clip (frame 0 "
                         "only for clips shorter than N)")
@@ -110,10 +142,6 @@ def main(argv=None, pipeline=None) -> int:
     args = p.parse_args(argv)
     if args.skip < 1:
         p.error(f"--skip must be >= 1, got {args.skip}")
-    if args.texture:
-        raise NotImplementedError(
-            "texture generation is not ported yet (ROADMAP.md, Queue 1 "
-            "item 13)")
 
     from motion324_tpu_torch.hy3dgen.postprocess import (reduce_faces,
                                                          remove_degenerate,
@@ -132,6 +160,8 @@ def main(argv=None, pipeline=None) -> int:
         pipeline = ShapeGenPipeline.init_random(
             conditioner_type="mv" if args.mv else "single",
             device=args.device)
+    if args.texture and painter is None:
+        painter = _painter(args)
     os.makedirs(args.output, exist_ok=True)
     for img_path, multi_frame in [(f, len(fp) > 1) for fp in mine for f in fp]:
         stem = img_path.split(os.sep)[-3].replace("_processed", "")
@@ -150,9 +180,19 @@ def main(argv=None, pipeline=None) -> int:
         mesh = reduce_faces(remove_degenerate(remove_floaters(mesh)),
                             args.max_faces)
         out = os.path.join(args.output, f"{stem}.glb")
-        export_glb(out, mesh.vertices, mesh.faces)
+        if args.texture:
+            mesh = painter(mesh, cond_input.get("front", image)
+                           if isinstance(cond_input, dict) else image)
+            try:
+                import PIL  # noqa: F401  (the texture's image encoder)
+            except ImportError:
+                print(f"{stem}: textured mesh of {len(mesh.faces)} faces; "
+                      f"no GLB written (encoding the texture needs PIL)")
+                continue
+        export_glb(out, mesh.vertices, mesh.faces, uv=mesh.uv,
+                   texture=mesh.texture)
         print(f"{stem}: wrote {out} ({len(mesh.vertices)} vertices, "
-              f"{len(mesh.faces)} faces)")
+              f"{len(mesh.faces)} faces{', textured' if args.texture else ''})")
     return 0
 
 

@@ -5,7 +5,11 @@
 - :func:`trilinear_upsample`: edge-aligned integer-factor upsample of a
   cubic node grid (the hierarchical volume decode's coarse -> fine step);
 - :func:`shell_indices`: flat indices of the dilated ``|v| < band`` shell,
-  optionally ordered by spatial cell (the refinement point set).
+  optionally ordered by spatial cell (the refinement point set);
+- :func:`vertex_inpaint`: UV-seam vertex colour diffusion of a baked
+  texture (texture generation), held against :func:`vertex_inpaint_numpy`;
+- :func:`inpaint_ns`: the Navier-Stokes hole fill of an RGB uint8 image by
+  fast marching, the semantics of ``cv2.inpaint(..., cv2.INPAINT_NS)``.
 
 The sources here are the port's own copies. They are compiled at first use
 with ``g++ -O3 -shared -fPIC`` into ``motion324_tpu_torch/build/``, keyed by
@@ -28,12 +32,13 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["marching_cubes", "qem_simplify", "trilinear_upsample",
-           "shell_indices", "build"]
+           "shell_indices", "vertex_inpaint", "vertex_inpaint_numpy",
+           "inpaint_ns", "build"]
 
 _DIR = Path(__file__).resolve().parent
 _BUILD_DIR = _DIR.parent / "build"
 _SOURCES = ("marching_cubes.cpp", "qem_simplify.cpp", "trilinear.cpp",
-            "shell.cpp")
+            "shell.cpp", "mesh_processor.cpp", "inpaint.cpp")
 _FLAGS = ["-O3", "-shared", "-fPIC"]
 _lib: ctypes.CDLL | None = None
 
@@ -73,8 +78,11 @@ def _get() -> ctypes.CDLL:
         lib.trilinear_upsample.argtypes = [p, ctypes.c_int32, ctypes.c_int32, p]
         lib.shell_indices.argtypes = [p, ctypes.c_int32, f, ctypes.c_int32,
                                       ctypes.c_int32, p, ctypes.c_int64, p]
+        lib.vertex_inpaint.argtypes = [p, p, i, i, i, p, i, p, i, p, p, i, p, p]
+        lib.inpaint_ns.argtypes = [p, p, i, i, i, p]
         for fn in (lib.marching_tetrahedra, lib.qem_simplify,
-                   lib.trilinear_upsample, lib.shell_indices):
+                   lib.trilinear_upsample, lib.shell_indices,
+                   lib.vertex_inpaint, lib.inpaint_ns):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -175,3 +183,108 @@ def shell_indices(volume: np.ndarray, band: float, iters: int,
             break
         cap = n.value
     raise RuntimeError(f"shell_indices failed with code {rc}")
+
+
+def vertex_inpaint(texture: np.ndarray, mask: np.ndarray, vtx_pos: np.ndarray,
+                   vtx_uv: np.ndarray, pos_idx: np.ndarray,
+                   uv_idx: np.ndarray):
+    """UV-seam vertex colour diffusion (``mesh_processor.cpp``).
+
+    ``texture`` (H, W, C) f32, ``mask`` (H, W) uint8 (> 0 = coloured),
+    ``vtx_pos`` (V, 3), ``vtx_uv`` (U, 2), ``pos_idx`` / ``uv_idx`` (F, 3).
+    Returns ``(texture (H, W, C) f32, mask (H, W) uint8)``."""
+    lib = _get()
+    texture = np.ascontiguousarray(texture, np.float32)
+    mask = np.ascontiguousarray(mask, np.uint8)
+    vtx_pos = np.ascontiguousarray(vtx_pos, np.float32)
+    vtx_uv = np.ascontiguousarray(vtx_uv, np.float32)
+    pos_idx = np.ascontiguousarray(pos_idx, np.int32)
+    uv_idx = np.ascontiguousarray(uv_idx, np.int32)
+    h, w, c = texture.shape
+    out_tex = np.empty_like(texture)
+    out_mask = np.empty_like(mask)
+    rc = lib.vertex_inpaint(_ptr(texture), _ptr(mask), h, w, c, _ptr(vtx_pos),
+                            len(vtx_pos), _ptr(vtx_uv), len(vtx_uv),
+                            _ptr(pos_idx), _ptr(uv_idx), len(pos_idx),
+                            _ptr(out_tex), _ptr(out_mask))
+    if rc != 0:
+        raise RuntimeError(f"vertex_inpaint failed with code {rc}")
+    return out_tex, out_mask
+
+
+def vertex_inpaint_numpy(texture, mask, vtx_pos, vtx_uv, pos_idx, uv_idx):
+    """The plain numpy version of :func:`vertex_inpaint`, the same contract
+    step by step (slow: for tests at small sizes)."""
+    texture = np.asarray(texture, np.float32)
+    mask = np.asarray(mask)
+    h, w, c = texture.shape
+    n_vtx = len(vtx_pos)
+    vtx_mask = np.zeros(n_vtx, bool)
+    vtx_color = np.zeros((n_vtx, c), np.float32)
+    uncolored: list[int] = []
+    adj: list[list[int]] = [[] for _ in range(n_vtx)]
+
+    def texel(uvi):
+        col = int(round(float(vtx_uv[uvi, 0]) * (w - 1)))
+        row = int(round((1.0 - float(vtx_uv[uvi, 1])) * (h - 1)))
+        return min(max(row, 0), h - 1), min(max(col, 0), w - 1)
+
+    for f in range(len(pos_idx)):
+        for k in range(3):
+            vi = int(pos_idx[f, k])
+            row, col = texel(int(uv_idx[f, k]))
+            if mask[row, col] > 0:
+                vtx_mask[vi] = True
+                vtx_color[vi] = texture[row, col]
+            else:
+                uncolored.append(vi)
+            adj[vi].append(int(pos_idx[f, (k + 1) % 3]))
+
+    stall, last_remaining = 2, 0
+    while stall > 0:
+        remaining = 0
+        for vi in uncolored:
+            total, acc = 0.0, np.zeros(c, np.float32)
+            for nb in adj[vi]:
+                if not vtx_mask[nb]:
+                    continue
+                dist = float(np.sqrt(np.sum((vtx_pos[vi] - vtx_pos[nb]) ** 2)))
+                wgt = (1.0 / max(dist, 1e-4)) ** 2
+                acc += vtx_color[nb] * wgt
+                total += wgt
+            if total > 0:
+                vtx_color[vi] = acc / total
+                vtx_mask[vi] = True
+            else:
+                remaining += 1
+        stall = stall - 1 if remaining == last_remaining else stall + 1
+        last_remaining = remaining
+
+    out_tex = texture.copy()
+    out_mask = mask.copy()
+    for f in range(len(pos_idx)):
+        for k in range(3):
+            vi = int(pos_idx[f, k])
+            if vtx_mask[vi]:
+                row, col = texel(int(uv_idx[f, k]))
+                out_tex[row, col] = vtx_color[vi]
+                out_mask[row, col] = 255
+    return out_tex, out_mask
+
+
+def inpaint_ns(image: np.ndarray, mask: np.ndarray, radius: int = 3) -> np.ndarray:
+    """Fill the pixels of an (H, W, 3) uint8 image where ``mask`` (H, W) is
+    non-zero, by Navier-Stokes fast marching within ``radius`` pixels
+    (``inpaint.cpp``); the other pixels are returned as they are."""
+    lib = _get()
+    image = np.ascontiguousarray(image, np.uint8)
+    mask = np.ascontiguousarray(mask, np.uint8)
+    if image.ndim != 3 or image.shape[2] != 3 or mask.shape != image.shape[:2]:
+        raise ValueError(f"inpaint_ns takes an (H, W, 3) image and an (H, W) "
+                         f"mask, got {image.shape}, {mask.shape}")
+    out = np.empty_like(image)
+    rc = lib.inpaint_ns(_ptr(image), _ptr(mask), image.shape[0],
+                        image.shape[1], int(radius), _ptr(out))
+    if rc != 0:
+        raise RuntimeError(f"inpaint_ns failed with code {rc}")
+    return out

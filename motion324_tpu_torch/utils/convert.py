@@ -17,6 +17,10 @@
   names, so ``model`` and the decoder part of ``vae`` load as they are; the
   conditioner's HF DINOv2 names (separate q/k/v) map through
   :func:`dinov2_hf_state_dict`.
+- :func:`paint_params_from_jax`: the JAX ``MultiviewDiffusion.params``
+  (``unet``, ``vae``) -> the state dicts of the port's ``UNet2p5D`` and
+  ``AutoencoderKL``, whose module names are the flax names
+  (:func:`flax_to_state_dict`).
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch
 
 __all__ = ["params_from_jax", "load_reference_state_dict",
            "shape_params_from_jax", "dinov2_hf_state_dict",
-           "hunyuan_ckpt_state_dicts"]
+           "hunyuan_ckpt_state_dicts", "flax_to_state_dict",
+           "paint_params_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -307,3 +312,35 @@ def hunyuan_ckpt_state_dicts(ckpt: dict, mv: bool = False):
         dims["cond_native_grid"] = int(round((n_pos - 1) ** 0.5))
         out["conditioner"] = dinov2_hf_state_dict(dino, "dino." if mv else "")
     return out, dims
+
+
+def flax_to_state_dict(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A flax param tree whose module names are the port's -> its state
+    dict: Dense ``kernel (in, out)`` -> ``weight (out, in)``; Conv ``kernel
+    (kh, kw, in, out)`` -> ``weight (out, in, kh, kw)``; norm ``scale`` ->
+    ``weight``; Embed ``embedding`` -> ``weight``; ``bias`` as it is."""
+    out: dict[str, torch.Tensor] = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.update(flax_to_state_dict(val, name + "."))
+            continue
+        a = np.asarray(val, np.float32)
+        if key == "kernel":
+            a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+            out[f"{prefix}weight"] = _t(a)
+        elif key in ("scale", "embedding"):
+            out[f"{prefix}weight"] = _t(a)
+        elif key == "bias":
+            out[name] = _t(a)
+        else:
+            raise KeyError(f"unexpected flax leaf {name}")
+    return out
+
+
+def paint_params_from_jax(params: dict):
+    """The JAX ``MultiviewDiffusion.params`` (``{"unet": {"params": ...},
+    "vae": {"params": ...}, ...}``) -> ``(unet_sd, vae_sd)`` for the port's
+    ``UNet2p5D`` and ``AutoencoderKL``."""
+    return (flax_to_state_dict(params["unet"]["params"]),
+            flax_to_state_dict(params["vae"]["params"]))

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 flash, K6 single-KV and K2 head-folded
 forwards, with and without the LSE output; K3 / K4 flash and K5 head-folded
-backwards) against
+backwards; K7 voxel-masked flash attention; K8 the rasterizer) against
 their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one. This file imports
@@ -23,6 +23,10 @@ from motion324_tpu_torch.ops.flash_attention import (
 from motion324_tpu_torch.ops.folded_attention import (
     FoldedAttentionFn, folded_attention, folded_attention_bwd,
     folded_attention_bwd_reference, folded_attention_reference)
+from motion324_tpu_torch.ops.masked_attention import (
+    masked_attention_reference, masked_flash_attention)
+from motion324_tpu_torch.ops.rasterizer import (bin_faces, raster_reference,
+                                                rasterize)
 
 
 @pytest.fixture
@@ -245,3 +249,59 @@ def test_cuda_single_kv_matches_plain(cuda, dtype, sq, sk):
     assert_matches_plain(out, flash_attention_reference(q, k, v))
     assert_matches_plain(out_lse, want)
     assert_matches_plain(lse, want_lse, rel=2.0 ** -14)
+
+
+# K7 against its plain version: the mask bits are computed in the same f32
+# order on both sides, so only the softmax sums differ, as for K1.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,s,g", [(1, 10, 6144, 32), (2, 3, 300, 4),
+                                     (1, 20, 384, 8)])
+def test_cuda_masked_flash_matches_plain(cuda, dtype, b, h, s, g):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(b, h, s, 64, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    # cell positions on a coarse lattice, so that many pairs sit within the
+    # radius; a run of empty cells at 0
+    pos = torch.randint(0, g, (b, s, 3), generator=gen, device=cuda).float() / g
+    pos[:, : s // 10] = 0.0
+    radius = 1.73 / g
+    before = masked_flash_attention.launches
+    out = masked_flash_attention(q, k, v, pos, radius=radius)
+    torch.cuda.synchronize()
+    assert masked_flash_attention.launches == before + 1
+    want = masked_attention_reference(q, k, v, pos, radius=radius)
+    assert_matches_plain(out, want)
+    # a kernel that loses the radius test would be far off (0.7 r drops the
+    # lattice's face diagonals, sqrt(2) / g)
+    miss = masked_attention_reference(q, k, v, pos, radius=radius * 0.7)
+    assert (miss.float() - want.float()).abs().max() > \
+        REL_TOL[dtype] * want.float().abs().max()
+
+
+def _mesh(seed: int, n_faces: int, n_verts: int):
+    gen = torch.Generator().manual_seed(seed)
+    pos = torch.cat([torch.rand(n_verts, 2, generator=gen) * 2.2 - 1.1,
+                     torch.rand(n_verts, 1, generator=gen) * 1.8 - 0.9,
+                     torch.rand(n_verts, 1, generator=gen) * 0.4 + 0.8], 1)
+    faces = torch.randint(0, n_verts, (n_faces, 3), generator=gen)
+    return pos, faces
+
+
+# K8 is held to its plain version bit for bit: the same binned inputs, the
+# same f32 rounding of the inside test and the depth, the same tie-break.
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,n_faces", [(48, 48, 300), (512, 512, 5000),
+                                         (2048, 40, 3000), (333, 97, 700)])
+def test_cuda_rasterize_matches_plain_bit_for_bit(cuda, w, h, n_faces):
+    pos, faces = _mesh(w + n_faces, n_faces, n_faces // 2)
+    pos, faces = pos.to(cuda), faces.to(cuda)
+    before = rasterize.launches
+    find, bary = rasterize(pos, faces, w, h)
+    torch.cuda.synchronize()
+    assert rasterize.launches == before + 1
+    coeffs, bbox = bin_faces(pos, faces, w, h)
+    want = raster_reference(coeffs, bbox, w, h).reshape(h, w)
+    assert find.dtype == torch.int32 and find.shape == (h, w)
+    assert torch.equal(find, want)
+    assert (find > 0).float().mean().item() > 0.1

@@ -95,6 +95,36 @@ def test_shape_modules_load_neither_jax_nor_cv2_nor_pil(module):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+TEXTURE_MODULES = [
+    "motion324_tpu_torch.hy3dgen.camera", "motion324_tpu_torch.hy3dgen.mesh_render",
+    "motion324_tpu_torch.hy3dgen.uv_unwrap", "motion324_tpu_torch.hy3dgen.delight",
+    "motion324_tpu_torch.hy3dgen.voxel_attention",
+    "motion324_tpu_torch.hy3dgen.sd_vae", "motion324_tpu_torch.hy3dgen.sd_unet",
+    "motion324_tpu_torch.hy3dgen.paint_diffusion",
+    "motion324_tpu_torch.hy3dgen.paint_pipeline",
+    "motion324_tpu_torch.ops.rasterizer", "motion324_tpu_torch.ops.masked_attention",
+    "motion324_tpu_torch.utils.image", "motion324_tpu_torch.utils.sd_convert"]
+
+
+@pytest.mark.parametrize("module", TEXTURE_MODULES)
+def test_texture_modules_load_neither_jax_nor_cv2_nor_pil(module):
+    """Each texture-generation module alone: no JAX, and neither cv2 nor
+    PIL (the card's machine has neither: the port's image ops and hole
+    fill replace cv2); importing builds nothing."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'cv2'))\n"
+            "from motion324_tpu_torch import native\n"
+            "from motion324_tpu_torch.ops import _build\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad or native._lib is not None or _build._libs "
+            "else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10

@@ -563,9 +563,17 @@ def test_generate_assets_cli_writes_a_glb_on_the_cpu(tmp_path, pipes):
     if glbs:   # a random field may hold no surface at all
         assert glbs == ["wolf.glb"]
         assert 0 < len(load_mesh(str(out / "wolf.glb")).faces) <= 500
-    with pytest.raises(NotImplementedError, match="item 13"):
-        generate_assets.main(["--input-root", str(tmp_path / "in"),
-                              "--texture"], pipeline=tp)
+    # --texture hands each cleaned mesh and its image to the painter
+    # (tests/test_torch_paint.py drives the real one)
+    painted = []
+    rc = generate_assets.main(["--input-root", str(tmp_path / "in"),
+                               "--output", str(out), "--steps", "2",
+                               "--octree-resolution", "24", "--no-recenter",
+                               "--max-faces", "500", "--device", "cpu",
+                               "--texture"], pipeline=tp,
+                              painter=lambda m, img: painted.append(img.shape) or m)
+    assert rc == 0
+    assert painted == [(28, 28, 3)] * len(glbs)
 
 
 def test_generate_assets_scan_and_shards_match_the_script(tmp_path):
