@@ -55,6 +55,26 @@ Phases, each of which raises on failure (exit code non-zero):
    against the plain attention path, with two injected K7 faults; a
    device-only profile of the turbo paint.
 
+8. K9 kernels (after the K7 kernel phase): the short-attention forward,
+   forward with the compact LSE and backward of the legacy route against
+   their plain versions at the JAX check script's shapes and the motion
+   model's sites (local, global, shape encoder, point blocks, decoder; the
+   training sites for the LSE forward and the backward), timed beside the
+   bound, the plain version and SDPA.
+9. legacy route (after the main path): MotionPipeline.run with
+   attn_backend="short_legacy": exactly 39 K9 launches per clip by call
+   site, DINOv2's 24 on K2 and none on K1; five timed clips; agreement with
+   the plain path and two injected K9 faults.
+10. legacy training (after training): train_step on that route, 44 K9
+   forwards with the LSE and 44 K9 backwards per step by call site; the
+   gradients against the plain path, the step twice, an injected K9
+   backward fault; the step time.
+11. batch + segmentation: run_batch on four seeded clips of blob.glb and
+   one of a 42-vertex mesh with a seeded, calibrated full-width U2Net in
+   the graph; each clip of predict_batch against the clip alone; the bf16
+   mask against the f32 one; clips/s at B = 1 and B = 4 (decode chunk 6
+   and 12); U2Net and ISNet ms per 224^2 frame.
+
 The kernel phase also holds K7 at the three turbo shapes, and K1, K2 and
 K6 at the paint UNet's call sites.
 
@@ -107,10 +127,14 @@ REPLACES = {
     "flash_single_kv_lse": "motion324_tpu/ops/flash_attention.py:117",
     "masked_flash": "motion324_tpu/ops/masked_attention.py:42",
     "rasterize": "motion324_tpu/ops/rasterizer.py:88",
+    "short_fwd": "motion324_tpu/ops/short_attention.py:53",
+    "short_fwd_lse": "motion324_tpu/ops/short_attention.py:53",
+    "short_bwd": "motion324_tpu/ops/short_attention.py:71",
 }
 SOURCES = {"flash_fwd_lse": "flash_fwd", "flash_bwd_fused": "flash_bwd",
            "flash_bwd_two_pass": "flash_bwd", "folded_fwd_lse": "folded_fwd",
-           "folded_bwd": "folded_bwd", "flash_single_kv_lse": "flash_single_kv"}
+           "folded_bwd": "folded_bwd", "flash_single_kv_lse": "flash_single_kv",
+           "short_fwd_lse": "short_fwd"}
 
 
 def log(msg: str) -> None:
@@ -494,7 +518,11 @@ def launch_counters(fa, fo) -> dict:
     """Each kernel's launch counter, by name: (wrapper function, attribute)."""
     from motion324_tpu_torch.ops import masked_attention as ma
     from motion324_tpu_torch.ops import rasterizer as ra
-    return {"masked_flash": (ma.masked_flash_attention, "launches"),
+    from motion324_tpu_torch.ops import short_attention as sa
+    return {"short_fwd": (sa.short_attention, "launches"),
+            "short_fwd_lse": (sa.short_attention, "lse_launches"),
+            "short_bwd": (sa.short_attention_bwd, "launches"),
+            "masked_flash": (ma.masked_flash_attention, "launches"),
             "rasterize": (ra.rasterize, "launches"),
             "flash_fwd": (fa.flash_attention, "launches"),
             "flash_fwd_lse": (fa.flash_attention, "lse_launches"),
@@ -535,12 +563,14 @@ def launch_spy(fa, fo, record_raster: list | None = None):
     attention, any other a global layer; K2 over 257 tokens is DINOv2, over
     512 the ShapeVAE, over 256 the UNet's 16^2 level, over 384 its mid
     multiview attention, any other a local layer; K7 by its token count;
-    K8 by its width. The counts are the wrappers' own counters, read before
+    K8 by its width; K9 (the legacy route, (B*H, S, 64) slices) by
+    :func:`short_site`. The counts are the wrappers' own counters, read before
     and after each call. With ``record_raster`` a list, each K8 call's
     inputs and output are appended to it. Returns (counts by (kernel,
     site), a function that removes the wrappers)."""
     from motion324_tpu_torch.ops import masked_attention as ma
     from motion324_tpu_torch.ops import rasterizer as ra
+    from motion324_tpu_torch.ops import short_attention as sa
     counts: dict = {}
     flash_sites = {64: "shape_encoder", 1370: "conditioner", 1881: "dit",
                    8192: "volume_query", 4096: "unet_64", 1024: "unet_32",
@@ -584,8 +614,25 @@ def launch_spy(fa, fo, record_raster: list | None = None):
                                saved_q(a).shape[2], "global"))),
             patch_backward(fo.FoldedAttentionFn,
                            lambda r: spy(r, lambda a: folded_sites.get(
-                               saved_q(a).shape[1], "local")))]
+                               saved_q(a).shape[1], "local"))),
+            wrap(sa, "_forward", lambda a: short_site(a[0], a[1])),
+            patch_backward(sa.ShortAttentionFn,
+                           lambda r: spy(r, lambda a: short_site(
+                               *a[0].saved_tensors[:2])))]
     return counts, lambda: [u() for u in reversed(undo)]
+
+
+def short_site(q, k) -> str:
+    """The motion model's call site of a K9 call on (B*H, S, 64) slices:
+    64 keys are the 64 mesh tokens (64 queries: a point block; else the
+    decoder's points); 64 queries over more keys the shape encoder; 324 x
+    324 a local layer; any other a global layer."""
+    sq, sk = q.shape[1], k.shape[1]
+    if sk == 64:
+        return "pcd" if sq == 64 else "decoder"
+    if sq == 64:
+        return "shape_encoder"
+    return "local" if sq == sk == 324 else "global"
 
 
 # launches per clip by (kernel, call site): the shape encoder (64 queries x
@@ -757,6 +804,11 @@ def phase_pipeline(torch, seed: int, repo: str) -> dict:
 def kernel_group(name: str) -> str:
     """The kernel group of a CUDA kernel's name in a profile."""
     n = name.lower()
+    if "short_fwd" in n:
+        return "K9 short_fwd"
+    if "bwd_dq_bf16<true>" in n or "bwd_dq_f32<true>" in n \
+            or "bwd_dkv_bf16<false, true>" in n or "bwd_dkv_f32<false, true>" in n:
+        return "K9 short_bwd"
     if "single_kv" in n:
         return "K6 flash_single_kv"
     if "flash_fwd" in n:
@@ -1843,6 +1895,525 @@ def phase_paint(torch, seed: int) -> tuple[dict, list]:
     return sites, rows
 
 
+# K9 shapes as (kernel, case, B*H slices, Sq, Sk, on the path, dtypes). The
+# JAX package's check script (scripts/check_tpu_kernels.py: (8, 12, 324,
+# 64) bf16, (4, 4, 324, 64) f32); the legacy route's inference sites on
+# blob.glb (B = 1, 12 heads, 12-frame windows, 16 384 shape samples): local
+# 12 images, global 3 888 tokens, the shape encoder, the point blocks and
+# the decoder's 162 vertices x 12 frames against 64 mesh tokens; for the
+# LSE forward and the backward the training sites (micro-batch 2, 4 096
+# shape samples and supervision points, the decoder's 12 frames folded).
+BF16, F32 = ("bfloat16",), ("float32",)
+BOTH = BF16 + F32
+SHORT_CASES = [
+    ("short_fwd", "check_8x12", 96, 324, 324, False, BF16),
+    ("short_fwd", "check_4x4", 16, 324, 324, False, F32),
+    ("short_fwd", "local", 144, 324, 324, True, BOTH),
+    ("short_fwd", "global", 12, 3888, 3888, True, BOTH),
+    ("short_fwd", "shape_encoder", 12, 64, 16384, True, BOTH),
+    ("short_fwd", "pcd", 12, 64, 64, True, BOTH),
+    ("short_fwd", "decoder", 144, 162, 64, True, BOTH),
+    ("short_fwd_lse", "local", 288, 324, 324, True, BOTH),
+    ("short_fwd_lse", "global", 24, 3888, 3888, True, BOTH),
+    ("short_fwd_lse", "shape_encoder", 24, 64, 4096, True, BOTH),
+    ("short_fwd_lse", "pcd", 24, 64, 64, True, BOTH),
+    ("short_fwd_lse", "decoder", 288, 4096, 64, True, BOTH),
+    ("short_bwd", "check_8x12", 96, 324, 324, False, BF16),
+    ("short_bwd", "check_4x4", 16, 324, 324, False, F32),
+    ("short_bwd", "local", 288, 324, 324, True, BOTH),
+    ("short_bwd", "global", 24, 3888, 3888, True, BOTH),
+    ("short_bwd", "shape_encoder", 24, 64, 4096, True, BOTH),
+    ("short_bwd", "pcd", 24, 64, 64, True, BOTH),
+    ("short_bwd", "decoder", 288, 4096, 64, True, BOTH),
+]
+
+
+def phase_short_kernels(torch, seed: int) -> list[dict]:
+    """K9 forward (scale 1/8 folded in), forward with the compact LSE and
+    backward (q pre-scaled) against their plain versions, each output within
+    REL_TOL of its max |plain| (the LSE at the f32 share), a plain version
+    that drops keys outside that limit: the last 64, or 16 of the decoder's
+    and point blocks' 64. Timed beside the bound, the plain version and
+    torch's scaled_dot_product_attention (forward, or backward alone)."""
+    import torch.nn.functional as F
+    from motion324_tpu_torch.ops import short_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    rows = []
+    for kname, case, bh, sq, sk, main, dtypes in SHORT_CASES:
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
+            cut = 64 if sk > 64 else 16
+            drop = lambda x: x[:, :sk - cut]
+            if kname == "short_fwd":
+                q = randn(bh, sq, 64, dtype=dtype)
+                k, v = randn(bh, sk, 64, dtype=dtype), randn(bh, sk, 64, dtype=dtype)
+                run = lambda: sa._forward(q, k, v, 0.125, False)[0]
+                plain_of = lambda kk, vv: (sa.short_attention_reference(
+                    q, kk, vv, scale=0.125),)
+                outs, names = (run(),), ("out",)
+                # SDPA's fused kernels take 4-D inputs: the slices as heads
+                lib = lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], scale=0.125)
+            else:
+                q = randn(bh, sq, 64, dtype=dtype, scale=0.125)
+                k, v = randn(bh, sk, 64, dtype=dtype), randn(bh, sk, 64, dtype=dtype)
+                o, lse = sa.short_attention_reference(q, k, v, scale=1.0,
+                                                      with_lse=True)
+                if kname == "short_fwd_lse":
+                    run = lambda: sa._forward(q, k, v, 1.0, True)
+                    plain_of = lambda kk, vv: sa.short_attention_reference(
+                        q, kk, vv, scale=1.0, with_lse=True)
+                    names = ("out", "lse")
+                    lib = lambda: F.scaled_dot_product_attention(
+                        q[None], k[None], v[None], scale=1.0)
+                else:
+                    do = randn(bh, sq, 64, dtype=dtype)
+                    run = lambda: sa.short_attention_bwd(q, k, v, o, lse, do)
+
+                    def plain_of(kk, vv):
+                        dq, dk, dv = sa.short_attention_bwd_reference(
+                            q, kk, vv, o, lse, do)
+                        pad = lambda x: torch.cat(
+                            [x, torch.zeros_like(x[:, :sk - x.shape[1]])], 1)
+                        return dq, pad(dk), pad(dv)
+                    names = ("dq", "dk", "dv")
+                    qg, kg, vg = (t[None].detach().clone().requires_grad_()
+                                  for t in (q, k, v))
+                    ref = F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
+                    lib = lambda: torch.autograd.grad(ref, (qg, kg, vg), do[None],
+                                                      retain_graph=True)
+                outs = run()
+            wants = plain_of(k, v)
+            misses = plain_of(drop(k), drop(v))
+            torch.cuda.synchronize()
+            errs = {}
+            for name, out, want, miss in zip(names, outs, wants, misses):
+                err, top = rel_err(out, want)
+                tol = REL_TOL["float32" if name == "lse" else dname] * top
+                miss_err = rel_err(miss, want)[0]
+                if not err <= tol:
+                    raise AssertionError(f"{kname}/{case} {dname} {name}: max "
+                                         f"|kernel - plain| {err:.3e} > {tol:.3e}")
+                if not miss_err > tol:
+                    raise AssertionError(f"{kname}/{case} {dname} {name}: the "
+                                         f"tolerance {tol:.3e} misses {cut} "
+                                         f"dropped keys ({miss_err:.3e})")
+                errs[name] = (err, top, tol, miss_err)
+            del outs, wants, misses
+            reps = dict(n=10, reps=5) if dname == "bfloat16" else dict(n=2, reps=2)
+            ms = time_ms(torch, run, **reps)
+            plain_ms = time_ms(torch, lambda: plain_of(k, v), n=2, reps=3)
+            lib_ms = time_ms(torch, lib, **reps)
+            bound_ms, bound_by = bound(bh, 1, sq, sk, dname, q.element_size(),
+                                       backward=kname == "short_bwd",
+                                       lse=kname != "short_fwd")
+            detail = "; ".join(
+                f"{n} max|d| {e:.2e} / max|plain| {t:.3g} (tol {tl:.2e}, "
+                f"{cut} keys dropped {m:.2e})" for n, (e, t, tl, m) in errs.items())
+            log(f"  {kname:13s} {case:13s} {dname:8s} BH{bh} Sq{sq} Sk{sk}: "
+                f"{detail}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
+                f"{lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})")
+            rows.append(dict(kernel=kname, case=case, dtype=dname, main=main,
+                             max_abs_err=max(e for e, *_ in errs.values()),
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound_ms, bound_by=bound_by))
+            q = k = v = o = lse = do = ref = qg = kg = vg = None
+            run = plain_of = lib = None
+            torch.cuda.empty_cache()
+    return rows
+
+
+# K9 launches per clip on the legacy route by call site: the shape encoder
+# (64 queries x 16 384 keys) and 4 point blocks once per clip; 8 global and
+# 8 local layers per window, two windows; the decoder once per window (12
+# frames folded, 162 vertices in one chunk). DINOv2 stays on K2 (12 layers
+# x 2 windows); nothing on K1
+LEGACY_CLIP_LAUNCHES = {
+    ("short_fwd", "shape_encoder"): 1, ("short_fwd", "pcd"): 4,
+    ("short_fwd", "global"): 16, ("short_fwd", "local"): 16,
+    ("short_fwd", "decoder"): 2, ("folded_fwd", "dino"): 24}
+
+
+def short_faults(torch) -> dict:
+    """Wrong K9 calls to inject in place of the dispatcher's legacy route,
+    by name: a map from the real wrapper to a faulty one."""
+    off = 0.9 / 8.0    # the logit scale 1/sqrt(64), 10% low
+
+    def scale_off(real):
+        return lambda q, k, v, **kw: real(q, k, v, **{**kw, "scale": off})
+
+    def local_zeroed(real):
+        return lambda q, k, v, **kw: (torch.zeros_like(q) if q.shape[2] == 324
+                                      else real(q, k, v, **kw))
+    return {"K9 logit scale 10% low": scale_off,
+            "K9 output zeroed on the local layers": local_zeroed}
+
+
+def phase_legacy_pipeline(torch, seed: int, repo: str) -> dict:
+    """MotionPipeline.run on the legacy route (attn_backend="short_legacy")
+    at release width in bf16, the main phase's weights and clip: exact
+    launches by call site, five timed clips, agreement with the plain path
+    and two injected K9 faults read against that tolerance."""
+    from motion324_tpu_torch.config import ModelConfig
+    from motion324_tpu_torch.inference.pipeline import MotionPipeline
+    from motion324_tpu_torch.io.glb import load_animated_glb
+    from motion324_tpu_torch.ops import attention
+    from motion324_tpu_torch.ops import flash_attention as fa
+    from motion324_tpu_torch.ops import folded_attention as fo
+
+    mesh = os.path.join(repo, "examples", "synthetic", "blob.glb")
+    cfg = ModelConfig(dtype=torch.bfloat16, decode_frames_chunk=12,
+                      attn_backend="short_legacy")
+    with tempfile.TemporaryDirectory() as tmp:
+        video = os.path.join(tmp, "clip.npy")
+        np.save(video, synthetic_video(seed))
+        pipe = MotionPipeline(cfg, window=12, seed=seed)
+        set_layer_scale(torch, pipe.model, seed)
+        pipe.run(mesh, video, os.path.join(tmp, "warm"))
+        torch.cuda.synchronize()
+
+        def clip(name):
+            t0 = time.perf_counter()
+            path = pipe.run(mesh, video, os.path.join(tmp, name))
+            torch.cuda.synchronize()
+            return path, time.perf_counter() - t0
+
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(fa, fo)
+        by_site, undo = launch_spy(fa, fo)
+        try:
+            out, clip_s = clip("kernel")
+        finally:
+            undo()
+        launches = read_launches(fa, fo)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  launches in one clip: {launches}; by call site: "
+            f"{dict(sorted(by_site.items()))}")
+        want = {k: {"short_fwd": 39, "folded_fwd": 24}.get(k, 0) for k in launches}
+        if launches != want or by_site != LEGACY_CLIP_LAUNCHES:
+            raise AssertionError(f"legacy route launches {launches} / {by_site}, "
+                                 f"expected {want} / {LEGACY_CLIP_LAUNCHES}")
+        _, _, frames, _ = load_animated_glb(out)
+        times = [clip_s] + [clip(f"again{i}")[1] for i in range(4)]
+        log(f"  legacy clip: median {np.median(times):.4f} s end to end over "
+            f"{len(times)} runs {[round(t, 4) for t in times]}, peak device "
+            f"memory {peak_gb:.3f} GB")
+        profile_step(torch, lambda: clip("profiled"), what="legacy clip")
+
+        plain = MotionPipeline(dataclasses.replace(cfg, attn_backend="plain"),
+                               state_dict=pipe.model.state_dict(), window=12)
+        _, _, frames_plain, _ = load_animated_glb(
+            plain.run(mesh, video, os.path.join(tmp, "plain")))
+        del plain
+        faulty = {}
+        for name, fault in short_faults(torch).items():
+            real = attention.short_attention
+            attention.short_attention = fault(real)
+            try:
+                path = pipe.run(mesh, video, os.path.join(tmp, "fault"))
+            finally:
+                attention.short_attention = real
+            faulty[name] = float(np.abs(load_animated_glb(path)[2]
+                                        - frames_plain).max())
+    del pipe
+    torch.cuda.empty_cache()
+    err = float(np.abs(frames - frames_plain).max())
+    scale = float(np.abs(frames_plain).max())
+    tol = E2E_REL_TOL * scale
+    log(f"  legacy route against the plain path: max|kernel - plain| "
+        f"{err:.3e} = {err / scale:.3e} x max|traj| {scale:.3f} (tol "
+        f"{E2E_REL_TOL:.0e} x max|traj| = {tol:.3e})")
+    for name, e in faulty.items():
+        log(f"  injected fault, {name}: max|faulty - plain| {e:.3e} = "
+            f"{e / scale:.3e} x max|traj|")
+    if not err <= tol:
+        raise AssertionError(f"legacy trajectories disagree with the plain "
+                             f"path: {err:.3e} > {tol:.3e}")
+    missed = [name for name, e in faulty.items() if not e > tol]
+    if missed:
+        raise AssertionError(f"the tolerance {tol:.3e} misses injected K9 "
+                             f"faults: {missed}")
+    return by_site
+
+
+# K9 launches per micro-batch of a training step on the legacy route: the
+# shape encoder (64 x 4 096), 4 point blocks, 8 global and 8 local layers
+# and the decoder (12 frames folded, 4 096 points) with the LSE, each with
+# its backward; DINOv2's 12 layers on K2 without either
+LEGACY_TRAIN_LAUNCHES = {
+    **{("short_fwd_lse", s): n for s, n in (("shape_encoder", 1), ("pcd", 4),
+                                            ("global", 8), ("local", 8),
+                                            ("decoder", 1))},
+    **{("short_bwd", s): n for s, n in (("shape_encoder", 1), ("pcd", 4),
+                                        ("global", 8), ("local", 8),
+                                        ("decoder", 1))},
+    ("folded_fwd", "dino"): 12}
+
+
+def phase_legacy_training(torch, seed: int) -> dict:
+    """train_step on the legacy route at release width, bf16 compute, f32
+    params, accumulation 2: exact launches per step by call site, one
+    step's gradients against the plain path within TRAIN_TOL, the step
+    twice (no atomics: the same gradients), an injected K9 backward fault
+    past param_grad, the median step time."""
+    from motion324_tpu_torch.config import ModelConfig, TrainConfig
+    from motion324_tpu_torch.models.motion_model import MotionLatentModel
+    from motion324_tpu_torch.ops import flash_attention as fa
+    from motion324_tpu_torch.ops import folded_attention as fo
+    from motion324_tpu_torch.ops import short_attention as sa
+    from motion324_tpu_torch.training.train_step import (create_train_state,
+                                                         train_step)
+
+    mcfg = ModelConfig(dtype=torch.bfloat16, decode_frames_chunk=12,
+                       attn_backend="short_legacy")
+    tcfg = TrainConfig(grad_accum_steps=2, remat=False, warmup=0, seed=seed,
+                       allowed_gradnorm_factor=100.0, lr=2e-7)
+    model = MotionLatentModel(mcfg, seed=seed).cuda()
+    set_layer_scale(torch, model, seed)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    state = create_train_state(model, tcfg)
+    micros = [training_batch(torch, seed + 1 + i) for i in range(2)]
+    zero_launches(fa, fo)
+    counts, undo = launch_spy(fa, fo)
+    try:
+        metrics = train_step(state, micros, tcfg)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    totals = read_launches(fa, fo)
+    want_sites = {k: 2 * v for k, v in LEGACY_TRAIN_LAUNCHES.items()}
+    want_totals = dict.fromkeys(totals, 0)
+    for (k, _), v in want_sites.items():
+        want_totals[k] += v
+    log(f"  launches in one step (2 micro-batches): {totals}; by call site: "
+        f"{dict(sorted(counts.items()))}; metrics {metrics}")
+    if totals != want_totals or counts != want_sites:
+        raise AssertionError(f"legacy training launches {totals} / {counts}, "
+                             f"expected {want_totals} / {want_sites}")
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, micros, tcfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"  legacy step: median {np.median(times):.4f} s over 3 "
+        f"{[round(t, 4) for t in times]}, {4 / np.median(times):.3f} samples/s, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del state
+    model.load_state_dict(init)
+    model.image_encoder.requires_grad_(False)
+    plain = MotionLatentModel(dataclasses.replace(mcfg, attn_backend="plain"),
+                              seed=None).cuda()
+    plain.load_state_dict(init)
+    plain.image_encoder.requires_grad_(False)
+    loss_k, grads_k, norm_k = step_grads(torch, model, micros, seed)
+    loss_p, grads_p, norm_p = step_grads(torch, plain, micros, seed)
+    del plain
+    torch.cuda.empty_cache()
+    total, worst, worst_name = grad_errors(grads_k, grads_p)
+    readings = {"loss": abs(loss_k - loss_p) / abs(loss_p),
+                "grad_norm": abs(norm_k - norm_p) / norm_p,
+                "grads": total, "param_grad": worst}
+    log(f"  legacy vs plain path, one step: loss {loss_k:.6f} vs {loss_p:.6f}, "
+        f"grad norm {norm_k:.5f} vs {norm_p:.5f}; relative: "
+        + ", ".join(f"{k} {v:.3e} (tol {TRAIN_TOL[k]:.0e})" for k, v in readings.items())
+        + f"; worst parameter {worst_name}")
+    _, grads_r, _ = step_grads(torch, model, micros, seed)
+    same = all(torch.equal(grads_r[n], g) for n, g in grads_k.items())
+    r_total, r_worst, _ = grad_errors(grads_r, grads_k)
+    del grads_r
+    log(f"  legacy path run twice: gradients {'identical' if same else 'differ'}"
+        f" (grads {r_total:.3e}, worst parameter {r_worst:.3e})")
+    problems = [f"{k} {v:.3e}" for k, v in readings.items()
+                if not v <= TRAIN_TOL[k]]
+
+    def dk_low(real):
+        def f(ctx, do):
+            dq, dk, dv = real(ctx, do)
+            return dq, dk * 0.9, dv
+        return f
+    undo = patch_backward(sa.ShortAttentionFn, dk_low)
+    try:
+        _, grads_f, _ = step_grads(torch, model, micros, seed)
+    finally:
+        undo()
+    f_total, f_worst, f_name = grad_errors(grads_f, grads_p)
+    caught = f_worst > TRAIN_TOL["param_grad"]
+    log(f"  injected fault, K9 backward dk 10% low: grads {f_total:.3e}, worst "
+        f"parameter {f_worst:.3e} ({f_name}): {'caught' if caught else 'MISSED'}")
+    if not caught:
+        problems.append("the K9 backward fault was missed")
+    del grads_f, grads_k, grads_p, model
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"legacy training: {problems}")
+    return counts
+
+
+def icosphere_obj(path: str, subdivisions: int) -> int:
+    """Write an icosphere as an OBJ; returns its vertex count (42 at one
+    subdivision; the blob's 162 would be two)."""
+    t = (1 + 5 ** 0.5) / 2
+    verts = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
+             (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
+             (-t, 0, -1), (-t, 0, 1)]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    verts = [np.array(v, float) / np.linalg.norm(v) for v in verts]
+    for _ in range(subdivisions):
+        mid: dict = {}
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                mid[key] = len(verts) - 1
+            return mid[key]
+        new = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = new
+    with open(path, "w") as f:
+        f.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in verts)
+        f.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in faces)
+    return len(verts)
+
+
+def calibrated_u2net(torch, seed: int, video: np.ndarray) -> dict:
+    """A full-width U2Net state dict: torch's default init from ``seed``,
+    then ``outconv`` scaled and shifted so that its logit over ``video``'s
+    frames (f32) has median 0 and standard deviation 4. The default init
+    alone gives probabilities of 0.48-0.49 everywhere (a black video at the
+    0.5 threshold); a trained net's logits are large on both sides."""
+    from motion324_tpu_torch.inference.segmentation import U2Net
+    torch.manual_seed(seed)
+    net = U2Net().cuda().eval()
+    seen = []
+    hook = net.outconv.register_forward_hook(lambda m, i, o: seen.append(o))
+    with torch.inference_mode():
+        net(torch.from_numpy(video).cuda().float() / 255)
+    hook.remove()
+    logit = seen[0].float()
+    med, k = logit.median().item(), 4.0 / logit.std().item()
+    with torch.no_grad():
+        net.outconv.weight.mul_(k)
+        net.outconv.bias.copy_((net.outconv.bias - med) * k)
+    return {n: t.cpu() for n, t in net.state_dict().items()}
+
+
+def phase_batch(torch, seed: int, repo: str) -> None:
+    """run_batch with U2Net in the graph (seeded random full-width weights)
+    on B = 4 seeded clips of blob.glb and one clip of a 42-vertex mesh;
+    each clip of predict_batch against predict of that clip alone; the
+    bf16 U2Net mask against the same net in f32 (TF32 off); clips per
+    second at B = 1 and B = 4, the latter at the decode-chunk rule's 6
+    frames and at 12; U2Net and ISNet milliseconds per 224^2 frame."""
+    from motion324_tpu_torch.batch_inference import decode_frames_chunk
+    from motion324_tpu_torch.config import ModelConfig
+    from motion324_tpu_torch.inference.pipeline import (MotionPipeline,
+                                                        build_u2net, load_video,
+                                                        prepare_mesh_inputs)
+    from motion324_tpu_torch.inference.segmentation import ISNet, U2Net
+    from motion324_tpu_torch.io.glb import load_animated_glb
+    from motion324_tpu_torch.io.mesh import load_mesh
+
+    mesh = os.path.join(repo, "examples", "synthetic", "blob.glb")
+    seg_sd = calibrated_u2net(torch, seed, synthetic_video(seed + 10))
+    chunk = decode_frames_chunk(12, 4)
+    cfg = ModelConfig(dtype=torch.bfloat16, decode_frames_chunk=chunk)
+    pipe = MotionPipeline(cfg, window=12, seed=seed, seg_params=seg_sd)
+    set_layer_scale(torch, pipe.model, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = []
+        for i in range(5):
+            video = os.path.join(tmp, f"clip{i}.npy")
+            np.save(video, synthetic_video(seed + 10 + i))
+            jobs.append((mesh, video))
+        other = os.path.join(tmp, "ico.obj")
+        n_other = icosphere_obj(other, 1)
+        jobs[-1] = (other, jobs[-1][1])
+        t0 = time.perf_counter()
+        paths = pipe.run_batch(jobs, os.path.join(tmp, "out"))
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        shapes = [load_animated_glb(p)[2].shape for p in paths]
+        log(f"  run_batch: 5 jobs (4 of blob.glb, 1 of a {n_other}-vertex "
+            f"mesh) in {batch_s:.3f} s, U2Net in the graph, decode chunk "
+            f"{chunk}; trajectories {shapes}")
+        if shapes != [(16, 162, 3)] * 4 + [(16, n_other, 3)] or not all(
+                np.isfinite(load_animated_glb(p)[2]).all() for p in paths):
+            raise AssertionError(f"run_batch wrote {shapes}")
+
+        inputs, _, _ = prepare_mesh_inputs(load_mesh(mesh))
+        inputs4 = {k: np.concatenate([v] * 4) for k, v in inputs.items()}
+        videos = np.stack([load_video(v, dtype=np.uint8) for _, v in jobs[:4]])
+    batched = pipe.predict_batch(inputs4, videos, "u2net")
+    errs = []
+    for i in range(4):
+        alone = pipe.predict(inputs, videos[i], "u2net")
+        errs.append(float(np.abs(batched[i] - alone[0]).max()
+                          / np.abs(alone).max()))
+    worst = max(errs)
+    log(f"  predict_batch (B = 4) against each clip alone: max|d| / max|traj| "
+        f"{[f'{e:.3e}' for e in errs]} (tol {E2E_REL_TOL:.0e})")
+    if not worst <= E2E_REL_TOL:
+        raise AssertionError(f"batched clips disagree with single clips: {worst:.3e}")
+
+    # the mask in bf16 (the pipeline's) against the same weights in f32
+    net32 = build_u2net(seg_sd, "cuda", torch.float32)
+    x = torch.from_numpy(videos.reshape(-1, 224, 224, 3)).cuda().float() / 255
+    with torch.inference_mode():
+        m16 = pipe.seg_net(x) > 0.5
+        m32 = net32(x) > 0.5
+    flipped = (m16 != m32).float().mean().item()
+    log(f"  U2Net mask, bf16 against f32 (TF32 off), {x.shape[0]} frames at "
+        f"224^2: {100 * flipped:.4f}% of pixels flipped; foreground "
+        f"{100 * m32.float().mean().item():.2f}% (f32)")
+
+    def clips_per_s(b, frames_chunk, n=3):
+        pipe.model.cfg = dataclasses.replace(cfg, decode_frames_chunk=frames_chunk)
+        inp = inputs4 if b == 4 else inputs
+        vid = videos if b == 4 else videos[:1]
+        pipe.predict_batch(inp, vid, "u2net")
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.predict_batch(inp, vid, "u2net")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return b / float(np.median(times))
+    rates = {}
+    for b, c in ((1, 12), (4, chunk), (4, 12), (4, 12), (4, chunk), (1, 12)):
+        rates.setdefault((b, c), []).append(clips_per_s(b, c))
+    pipe.model.cfg = cfg
+    log("  clips/s (predict_batch, 2 windows, U2Net in the graph; median of 3, "
+        "two turns each): " + ", ".join(
+            f"B={b} chunk {c}: {[round(r, 3) for r in v]}"
+            for (b, c), v in rates.items()))
+
+    frames = x[:16]
+    for name, net in (("U2Net", pipe.seg_net),
+                      ("ISNet", ISNet().to("cuda", torch.bfloat16).eval())):
+        xb = frames.to(torch.bfloat16)
+        with torch.inference_mode():
+            ms = time_ms(torch, lambda: net(xb), n=3, reps=3)
+        log(f"  {name} bf16 at 224^2: {ms / 16:.3f} ms per frame (batch 16)")
+    del pipe, net32
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1871,12 +2442,24 @@ def main(argv=None) -> int:
     rows += phase_grad_kernels(torch, args.seed)
     header("K7 (voxel-masked flash) against its plain version")
     rows += phase_masked_kernels(torch, args.seed)
+    header("K9 (short attention, forward and backward) against its plain "
+           "versions")
+    rows += phase_short_kernels(torch, args.seed)
     header("main path: MotionPipeline.run, release width, bf16")
     launches = phase_pipeline(torch, args.seed, repo)
+    header("legacy route: MotionPipeline.run with attn_backend='short_legacy'")
+    launches.update((k, n) for k, n in phase_legacy_pipeline(
+        torch, args.seed, repo).items() if k[0].startswith("short"))
     header("training path: train_step, release width, bf16 compute, f32 "
            "params")
     for key, n in phase_training(torch, args.seed).items():
         launches.setdefault(key, n)   # DINOv2's K2 row keeps its clip count
+    header("legacy training: train_step with attn_backend='short_legacy'")
+    launches.update((k, n) for k, n in phase_legacy_training(
+        torch, args.seed).items() if k[0].startswith("short"))
+    header("batch + segmentation: run_batch and predict_batch with U2Net in "
+           "the graph")
+    phase_batch(torch, args.seed, repo)
     header("shape path: ShapeGenPipeline, release width, bf16")
     launches.update(phase_shape(torch, args.seed))
     header("paint path: PaintPipeline with MultiviewDiffusion, release width, "

@@ -5,7 +5,9 @@
         [--checkpoint ckpt.pt] [--config configs/dyscene.yaml]
 
 Without ``--checkpoint`` the weights are random, drawn from ``--seed``. A
-checkpoint is a reference ``.pt`` state dict. ``--config`` reads the model
+checkpoint is a reference ``.pt`` state dict. ``--u2net`` segments the
+video with U2Net (a ``u2net.pth`` state dict) on the device instead of the
+border-statistics fallback. ``--config`` reads the model
 and its dtype from a YAML file (needs PyYAML); the default is the release
 model of ``configs/dyscene.yaml`` in bf16. mp4 input needs cv2; a ``.npy``
 array of frames does not.
@@ -31,6 +33,9 @@ def main(argv=None) -> int:
     parser.add_argument("--max-frames", type=int, default=None)
     parser.add_argument("--no-smooth", action="store_true")
     parser.add_argument("--no-segmentation", action="store_true")
+    parser.add_argument("--u2net", default=None,
+                        help="u2net.pth weights: U2Net segmentation on the "
+                             "device instead of the border fallback")
     parser.add_argument("--exact", action="store_true",
                         help="f32 video upload (no uint8 quantization)")
     args = parser.parse_args(argv)
@@ -50,7 +55,8 @@ def main(argv=None) -> int:
         print("no checkpoint given: random weights", file=sys.stderr)
     t0 = time.perf_counter()
     pipe = MotionPipeline(cfg, state_dict=args.checkpoint, window=cfg.frames,
-                          device=args.device, seed=args.seed)
+                          device=args.device, seed=args.seed,
+                          seg_params=args.u2net)
     out = pipe.run(args.mesh, args.video, args.output,
                    smooth=not args.no_smooth, max_frames=args.max_frames,
                    use_segmentation=not args.no_segmentation,

@@ -41,7 +41,10 @@ class ModelConfig:
     dino_depth: int = 12
     dino_heads: int = 12
     dtype: torch.dtype = torch.float32
-    attn_backend: str | None = None  # None (route by device) or "plain"
+    # attention route of the motion blocks: None routes by shape; "xla" or
+    # "plain" the plain path; "flash" K6/K1; "short" K2; "short_legacy" K9.
+    # DINOv2 stays on the automatic route except under "plain"
+    attn_backend: str | None = None
 
     @property
     def grid(self) -> int:

@@ -1,5 +1,5 @@
 // Device code shared by the attention backward kernels: K3 and K4
-// (flash_bwd.cu) and K5 (folded_bwd.cu).
+// (flash_bwd.cu), K5 (folded_bwd.cu) and the K9 backward (short_bwd.cu).
 //
 // All of them compute, for q already multiplied by the logit scale,
 //   P = exp(q k^T - lse),  dV = P^T dO,  dP = dO V^T,
@@ -24,7 +24,8 @@
 //    from run to run.
 //  - dq kernel: one block of 4 warps per (batch, head, 64-query tile), each
 //    warp holding its 16 rows' q and dO as A fragments and their dQ in f32
-//    registers, looping over 64-key tiles (K4's first pass; no atomics).
+//    registers, looping over 64-key tiles (the first pass of K4 and K9; no
+//    atomics). K9 computes delta in it from O (kDeltaFromO), K4 reads it.
 // f32: scalar FMA on 32 x 32 tiles in shared memory, the same structure;
 // a checking path, not a fast one.
 
@@ -286,9 +287,12 @@ __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dkv_bf16(BwdArgs p) {
   store_tile(static_cast<bf16*>(p.dv) + o_b, c_out, dv, kw, p.sk, lane);
 }
 
-// K4's dQ pass: no atomics, one block per 64-query tile.
+// The dQ pass of K4 and K9: no atomics, one block per 64-query tile. With
+// kDeltaFromO (K9) delta is computed here from O and dO, else read.
+template <bool kDeltaFromO>
 __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dq_bf16(BwdArgs p) {
   __shared__ uint4 smem_raw[4 * kBwdTile * kRow * sizeof(bf16) / 16];
+  __shared__ float delta_s[kBwdTile];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* do_s = q_s + kBwdTile * kRow;
   bf16* k_s = do_s + kBwdTile * kRow;
@@ -309,14 +313,25 @@ __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dq_bf16(BwdArgs p) {
   load_rows_bf16(q_s, qb, p.q_rs, row0, kBwdTile, p.sq, 1.0f, tid, nthreads);
   load_rows_bf16(do_s, dob, p.do_rs, row0, kBwdTile, p.sq, 1.0f, tid, nthreads);
   __syncthreads();
+  if constexpr (kDeltaFromO) {
+    const bf16* ob = static_cast<const bf16*>(p.o) + b * p.o_bs + h * kD;
+    delta_from_o<bf16, kBwdTile, 2, kRow>(delta_s, do_s, ob, p.o_rs, row0, p.sq, tid);
+    __syncthreads();
+  }
   uint32_t qf[4][4], dof[4][4];
   load_frags(qf, q_s + warp * 16 * kRow, lane);
   load_frags(dof, do_s + warp * 16 * kRow, lane);
   const int r0 = row0 + warp * 16 + g;
   const float l0 = r0 < p.sq ? lb[(long long)r0 * p.l_rs] : 0.f;
   const float l1 = r0 + 8 < p.sq ? lb[(long long)(r0 + 8) * p.l_rs] : 0.f;
-  const float d0 = r0 < p.sq ? db[(long long)r0 * p.l_rs] : 0.f;
-  const float d1 = r0 + 8 < p.sq ? db[(long long)(r0 + 8) * p.l_rs] : 0.f;
+  float d0, d1;
+  if constexpr (kDeltaFromO) {
+    d0 = delta_s[warp * 16 + g];
+    d1 = delta_s[warp * 16 + g + 8];
+  } else {
+    d0 = r0 < p.sq ? db[(long long)r0 * p.l_rs] : 0.f;
+    d1 = r0 + 8 < p.sq ? db[(long long)(r0 + 8) * p.l_rs] : 0.f;
+  }
 
   float dq[8][4];
 #pragma unroll
@@ -467,6 +482,7 @@ __global__ void __launch_bounds__(kSThreads) bwd_dkv_f32(BwdArgs p) {
   }
 }
 
+template <bool kDeltaFromO>
 __global__ void __launch_bounds__(kSThreads) bwd_dq_f32(BwdArgs p) {
   __shared__ float k_s[kST * kScalarRow], v_s[kST * kScalarRow];
   __shared__ float q_s[kST * kScalarRow], do_s[kST * kScalarRow];
@@ -489,7 +505,12 @@ __global__ void __launch_bounds__(kSThreads) bwd_dq_f32(BwdArgs p) {
   if (tid < kST) {
     const bool ok = row0 + tid < p.sq;
     lse_s[tid] = ok ? lb[(long long)(row0 + tid) * p.l_rs] : 0.f;
-    delta_s[tid] = ok ? db[(long long)(row0 + tid) * p.l_rs] : 0.f;
+    if (!kDeltaFromO) delta_s[tid] = ok ? db[(long long)(row0 + tid) * p.l_rs] : 0.f;
+  }
+  if constexpr (kDeltaFromO) {
+    const float* ob = static_cast<const float*>(p.o) + b * p.o_bs + h * kD;
+    __syncthreads();
+    delta_from_o<float, kST, 4, kScalarRow>(delta_s, do_s, ob, p.o_rs, row0, p.sq, tid);
   }
   constexpr int kPairs = kST * kD / kSThreads;
   const int col = tid % kD, qrow = tid / kD;

@@ -57,10 +57,10 @@ extern "C" int m324_flash_bwd(const void* q, const void* k, const void* v,
   if (fused) return launch_dkv<true, false>(a, bh, dtype, s);
   if (dtype == 1) {
     dim3 grid((sq + kBwdTile - 1) / kBwdTile, 1, bh);
-    bwd_dq_bf16<<<grid, kBwdWarps * 32, 0, s>>>(a);
+    bwd_dq_bf16<false><<<grid, kBwdWarps * 32, 0, s>>>(a);
   } else {
     dim3 grid((sq + kST - 1) / kST, 1, bh);
-    bwd_dq_f32<<<grid, kSThreads, 0, s>>>(a);
+    bwd_dq_f32<false><<<grid, kSThreads, 0, s>>>(a);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

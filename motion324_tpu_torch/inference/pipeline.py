@@ -4,26 +4,35 @@ The ``4D_from_existing`` product path:
 
 1. load the mesh, normalise it to the unit cube, sample textured surface
    points, transfer colours to the vertices;
-2. load the video; mask its background with the border-statistics
-   segmentation on the device;
+2. load the video; mask its background on the device, at model resolution:
+   with U2Net when the pipeline or the call holds its weights (in bf16,
+   the mask ``sigmoid > 0.5``), else with the border-statistics fallback;
 3. run :class:`MotionLatentModel` over sliding windows: the shape is encoded
    once and reused by every window, then each window is video-encoded and
    decoded in chunks of vertices;
 4. smooth the trajectories, remap (x, y, z) -> (x, -z, y) for Blender and
    write the animated GLB (morph targets).
 
-Trajectories are read back as exact f32.
+:meth:`MotionPipeline.predict_batch` runs B clips of one shape through each
+window in one forward, and :meth:`MotionPipeline.run_batch` groups a list
+of jobs by shape for it (the ``long_videos.txt`` batch runner,
+:mod:`motion324_tpu_torch.batch_inference`). Trajectories are read back as
+exact f32.
 """
 
 from __future__ import annotations
 
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from motion324_tpu_torch import resolve_device
 from motion324_tpu_torch.config import ModelConfig
+from motion324_tpu_torch.inference.segmentation import (
+    U2Net, load_segmentation_state_dict)
 from motion324_tpu_torch.inference.smoothing import smooth_trajectories
 from motion324_tpu_torch.inference.windowing import sliding_window_predict
 from motion324_tpu_torch.io.glb import export_animated_glb
@@ -32,9 +41,10 @@ from motion324_tpu_torch.io.mesh import (TriMesh, load_mesh, nearest_colors,
                                          sample_with_albedo, vertex_normals)
 from motion324_tpu_torch.models.motion_model import MotionLatentModel
 from motion324_tpu_torch.utils.convert import load_reference_state_dict
+from motion324_tpu_torch.utils.logging import log
 
 __all__ = ["MotionPipeline", "prepare_mesh_inputs", "load_video",
-           "resize_frames", "to_blender_coords"]
+           "resize_frames", "to_blender_coords", "build_u2net"]
 
 DECODE_CHUNK = 4096  # vertices decoded per call
 
@@ -122,6 +132,14 @@ def _border_segment(x: torch.Tensor, border: int = 8,
     return (dist.amax(dim=-1) > sigma_factor).to(x.dtype)
 
 
+def build_u2net(params, device, dtype: torch.dtype = torch.bfloat16) -> U2Net:
+    """A U2Net holding ``params`` (a ``u2net.pth`` state dict or its path)
+    on ``device``, its weights in ``dtype``, in inference mode."""
+    net = U2Net()
+    net.load_state_dict(load_segmentation_state_dict(params))
+    return net.to(device=device, dtype=dtype).eval()
+
+
 def to_blender_coords(trajs: np.ndarray) -> np.ndarray:
     """(x, y, z) -> (x, -z, y)."""
     out = trajs.copy()
@@ -138,10 +156,16 @@ class MotionPipeline:
     are random, drawn from ``seed``. ``device`` defaults to CUDA and raises
     when no card is present; pass ``"cpu"`` for the plain PyTorch path.
     The model computes in ``cfg.dtype``.
+
+    ``seg_params``: U2Net weights (a ``u2net.pth`` state dict or its path)
+    for the in-graph segmentation, held on the device in bf16 (as in the
+    JAX package) as ``seg_net``. A call that is given its own weights uses
+    those, for that call.
     """
 
     def __init__(self, cfg: ModelConfig, state_dict=None, window: int = 12,
-                 decode_chunk: int = DECODE_CHUNK, device=None, seed: int = 0):
+                 decode_chunk: int = DECODE_CHUNK, device=None, seed: int = 0,
+                 seg_params=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.window = window
@@ -150,18 +174,65 @@ class MotionPipeline:
         if state_dict is not None:
             load_reference_state_dict(model, state_dict)
         self.model = model.to(device=self.device, dtype=cfg.dtype).eval()
+        self.seg_net = (None if seg_params is None
+                        else build_u2net(seg_params, self.device))
+        self._call_seg = None   # (params, network) of the last call's weights
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
 
+    def _segmenter(self, seg_params) -> U2Net:
+        """The U2Net of a call: its own weights, else the constructor's."""
+        if seg_params is None:
+            if self.seg_net is None:
+                raise ValueError("segment='u2net' needs U2Net weights: pass "
+                                 "seg_params to the pipeline or the call")
+            return self.seg_net
+        if self._call_seg is None or self._call_seg[0] is not seg_params:
+            self._call_seg = (seg_params, build_u2net(seg_params, self.device))
+        return self._call_seg[1]
+
+    def _mask(self, x: torch.Tensor, segment, net) -> torch.Tensor:
+        """``(B, T, H, W, 3)`` frames in [0, 1] with the background set to 0:
+        ``segment`` is False (no mask), True or ``"border"`` (the
+        border-statistics fallback) or ``"u2net"`` (``net`` in its dtype,
+        the sigmoid in f32, the mask ``prob > 0.5``). U2Net takes one
+        clip's frames per call, so that a clip's mask does not depend on
+        the batch it runs in: the convolutions' algorithms, and so their
+        bf16 rounding, follow the batch size."""
+        if segment == "u2net":
+            prob = torch.stack([net(clip) for clip in x])
+            return x * (prob > 0.5)[..., None].to(x.dtype)
+        if segment:
+            return x * _border_segment(x)[..., None]
+        return x
+
     @torch.inference_mode()
-    def predict(self, inputs, video: np.ndarray,
-                segment: bool = False) -> np.ndarray:
+    def predict(self, inputs, video: np.ndarray, segment=False,
+                seg_params=None) -> np.ndarray:
         """Full-video trajectories ``(1, T, N, 3)`` over sliding windows.
 
         ``video`` is ``(T, H, W, 3)`` float32 in [0, 1] or uint8;
-        ``segment`` applies :func:`_border_segment` on the device.
+        ``segment`` is False, True / ``"border"`` or ``"u2net"`` (with
+        ``seg_params`` or the constructor's weights), applied on the device.
         """
+        return self.predict_batch(inputs, video[None], segment, seg_params)
+
+    @torch.inference_mode()
+    def predict_batch(self, inputs, videos: np.ndarray, segment=False,
+                      seg_params=None) -> np.ndarray:
+        """B clips of one shape in one forward per window: ``(B, T, N, 3)``.
+
+        ``inputs`` holds ``(B, ...)``-stacked mesh arrays (the same vertex
+        count), ``videos`` is ``(B, T, H, W, 3)`` float32 in [0, 1] or
+        uint8. The shape is encoded once for the B meshes; the sliding
+        windows run over the time-major video ``(T, B, H, W, 3)``, so that
+        each window is one ``(B, T_w, ...)`` forward.
+        """
+        if segment not in (False, None, True, "border", "u2net"):
+            raise ValueError(f"segment must be False, True, 'border' or "
+                             f"'u2net', not {segment!r}")
+        net = self._segmenter(seg_params) if segment == "u2net" else None
         m = self.model
         mesh_feat = m.encode_shape(self._tensor(inputs["ref_shape_pcd"]),
                                    self._tensor(inputs["ref_shape_normals"]),
@@ -170,31 +241,42 @@ class MotionPipeline:
         n = pts[0].shape[1]
 
         def forward(window):
-            x = self._tensor(window[None])
+            x = self._tensor(np.swapaxes(window, 0, 1))
             x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-            if segment:
-                x = x * _border_segment(x)[..., None]
-            tokens = m.encode_video(x, mesh_feat)
+            tokens = m.encode_video(self._mask(x, segment, net), mesh_feat)
             parts = [m.decode_points(tokens, *(p[:, i:i + self.decode_chunk]
                                                for p in pts))
                      for i in range(0, n, self.decode_chunk)]
             return torch.cat(parts, dim=2).cpu().numpy()
 
-        return sliding_window_predict(forward, video, self.window,
-                                      inputs["ref_pcd"])
+        return sliding_window_predict(forward, np.swapaxes(videos, 0, 1),
+                                      self.window, inputs["ref_pcd"])
+
+    def _export(self, out_path: str, trajs: np.ndarray, norm_mesh, fps: int):
+        export_animated_glb(out_path, to_blender_coords(norm_mesh.vertices),
+                            norm_mesh.faces, to_blender_coords(trajs),
+                            fps=fps, uv=norm_mesh.uv, texture=norm_mesh.texture,
+                            vertex_colors=norm_mesh.vertex_colors)
+
+    def _seg_mode(self, use_segmentation: bool, seg_params):
+        if not use_segmentation:
+            return False
+        return "u2net" if seg_params is not None or self.seg_net is not None \
+            else "border"
 
     def run(self, mesh_path: str, video_path: str, output_dir: str,
             num_shape_samples: int = 16384, smooth: bool = True,
             fps: int = 12, max_frames: int | None = None,
             use_segmentation: bool = True, uint8_upload: bool = True,
-            host_resize: bool = True) -> str:
+            host_resize: bool = True, segmentation_params=None) -> str:
         """Mesh + video -> ``output_dir/output_animation.glb``.
 
-        ``use_segmentation`` masks the background with
-        :func:`_border_segment`. ``uint8_upload`` quantizes the video to uint8
-        before it goes to the device (at most 1/510 per pixel);
-        ``host_resize`` resizes frames to the model's input size on the host
-        instead of in the model.
+        ``use_segmentation`` masks the background on the device: with U2Net
+        when ``segmentation_params`` (a state dict or a path) or the
+        constructor's weights are given, else with :func:`_border_segment`.
+        ``uint8_upload`` quantizes the video to uint8 before it goes to the
+        device (at most 1/510 per pixel); ``host_resize`` resizes frames to
+        the model's input size on the host instead of in the model.
         """
         os.makedirs(output_dir, exist_ok=True)
         video = load_video(video_path, max_frames,
@@ -202,13 +284,69 @@ class MotionPipeline:
                            resize_to=self.cfg.image_size if host_resize else None)
         mesh = load_mesh(mesh_path)
         inputs, _, norm_mesh = prepare_mesh_inputs(mesh, num_shape_samples)
-        trajs = self.predict(inputs, video, segment=use_segmentation)
+        trajs = self.predict(inputs, video,
+                             self._seg_mode(use_segmentation, segmentation_params),
+                             segmentation_params)
         if smooth:
             trajs = smooth_trajectories(trajs, method="combined",
                                         motion_threshold=0.002, sigma=1.0)
         out_path = os.path.join(output_dir, "output_animation.glb")
-        export_animated_glb(out_path, to_blender_coords(norm_mesh.vertices),
-                            norm_mesh.faces, to_blender_coords(trajs[0]),
-                            fps=fps, uv=norm_mesh.uv, texture=norm_mesh.texture,
-                            vertex_colors=norm_mesh.vertex_colors)
+        self._export(out_path, trajs[0], norm_mesh, fps)
         return out_path
+
+    def run_batch(self, jobs, output_dir: str, num_shape_samples: int = 16384,
+                  smooth: bool = True, fps: int = 12,
+                  max_frames: int | None = None, use_segmentation: bool = True,
+                  uint8_upload: bool = True,
+                  segmentation_params=None) -> list[str]:
+        """The ``long_videos.txt`` batch runner: ``jobs`` is a list of
+        ``(mesh_path, video_path)``; outputs go to
+        ``output_dir/<video_stem>/output_animation.glb``, returned in job
+        order. Jobs are loaded on a thread pool (mesh sampling, video
+        decoding, host resize), grouped by video shape and mesh input shapes
+        (a mesh's vertex count is part of its shape), and each group is
+        predicted at batch B by :meth:`predict_batch`. Segmentation as in
+        :meth:`run`.
+        """
+        os.makedirs(output_dir, exist_ok=True)
+
+        def load(job):
+            mesh_path, video_path = job
+            inputs, _, norm_mesh = prepare_mesh_inputs(load_mesh(mesh_path),
+                                                       num_shape_samples)
+            video = load_video(video_path, max_frames,
+                               dtype=np.uint8 if uint8_upload else np.float32,
+                               resize_to=self.cfg.image_size)
+            stem = os.path.splitext(os.path.basename(video_path))[0]
+            return inputs, norm_mesh, video, stem
+
+        with ThreadPoolExecutor(min(8, max(1, len(jobs)))) as pool:
+            loaded = list(pool.map(load, jobs))
+        groups: dict = {}
+        for idx, (inputs, _, video, _) in enumerate(loaded):
+            key = (video.shape,) + tuple(sorted(
+                (k, v.shape[1:]) for k, v in inputs.items()))
+            groups.setdefault(key, []).append(idx)
+
+        segment = self._seg_mode(use_segmentation, segmentation_params)
+        out_paths = [None] * len(loaded)
+        for key, idxs in groups.items():
+            batch_inputs = {k: np.concatenate([loaded[i][0][k] for i in idxs])
+                            for k in loaded[idxs[0]][0]}
+            videos = np.stack([loaded[i][2] for i in idxs])
+            t0 = time.perf_counter()
+            trajs = self.predict_batch(batch_inputs, videos, segment,
+                                       segmentation_params)
+            dt = time.perf_counter() - t0
+            log(f"batch predict: {len(idxs)} clips x {key[0][0]} frames in "
+                f"{dt:.2f} s ({len(idxs) / dt:.2f} clips/s)")
+            if smooth:
+                trajs = smooth_trajectories(trajs, method="combined",
+                                            motion_threshold=0.002, sigma=1.0)
+            for bi, i in enumerate(idxs):
+                _, norm_mesh, _, stem = loaded[i]
+                clip_dir = os.path.join(output_dir, stem)
+                os.makedirs(clip_dir, exist_ok=True)
+                out_paths[i] = os.path.join(clip_dir, "output_animation.glb")
+                self._export(out_paths[i], trajs[bi], norm_mesh, fps)
+        return out_paths

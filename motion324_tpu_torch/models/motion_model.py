@@ -77,9 +77,13 @@ class MotionLatentModel(nn.Module):
         self.encoder_cross_attn = CrossAttentionBlock(d, **kw)
         self.points_transformer_blocks = nn.ModuleList(
             TransformerBlock(d, **kw) for _ in range(c.pcd_layers))
+        # DINOv2 keeps the automatic route (K2) whatever backend the motion
+        # blocks are forced to, as in the JAX model; only "plain", the
+        # port's comparison switch, reaches it
         self.image_encoder = _ImageEncoder(DinoViT(
             embed_dim=d, depth=c.dino_depth, num_heads=c.dino_heads,
-            patch_size=c.patch_size, attn_backend=c.attn_backend))
+            patch_size=c.patch_size,
+            attn_backend="plain" if c.attn_backend == "plain" else None))
         n_pairs = c.n_alternating_layers // 2
         self.global_transformer_blocks = nn.ModuleList(
             TransformerBlock(d, **kw) for _ in range(n_pairs))

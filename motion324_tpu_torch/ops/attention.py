@@ -16,8 +16,15 @@ softmax over KV tiles (:func:`~motion324_tpu_torch.ops.flash_attention.
 single_kv_route`).
 
 A kernel route on a CUDA tensor launches the kernel; on a CPU tensor the
-kernel's wrapper computes its plain version. ``backend="plain"`` forces the
-plain path, for comparisons.
+kernel's wrapper computes its plain version.
+
+``backend`` forces a route, with the JAX package's names: ``"xla"`` the
+plain path (``"plain"`` is the same, the name the port's comparisons use);
+``"flash"`` the flash route (K6 or K1 as above); ``"short"`` K2;
+``"short_legacy"`` K9, the short-attention kernel over ``(B*H, S, 64)``
+slices (:mod:`motion324_tpu_torch.ops.short_attention`). The JAX package's
+interpreter modes (``"interpret"``, ``"*_interpret"``) are for its CPU tests
+and are refused here, as is any other name.
 """
 
 from __future__ import annotations
@@ -28,13 +35,19 @@ import torch
 
 from motion324_tpu_torch.ops.flash_attention import flash_attention
 from motion324_tpu_torch.ops.folded_attention import folded_attention
+from motion324_tpu_torch.ops.short_attention import short_attention
 
-__all__ = ["multi_head_attention", "mha_reference", "select_route"]
+__all__ = ["multi_head_attention", "mha_reference", "select_route",
+           "BACKENDS"]
 
 FLASH_MIN_KV = 1024
 SHORT_MIN_KV = 128
 SHORT_MIN_Q = 128
 SHORT_MAX_AREA = 512 * 512
+
+# forced routes by backend name
+BACKENDS = {"plain": "plain", "xla": "plain", "flash": "flash",
+            "short": "folded", "short_legacy": "short_legacy"}
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -66,20 +79,27 @@ def multi_head_attention(q, k, v, *, scale: float | None = None,
                          backend: str | None = None) -> torch.Tensor:
     """Multi-head attention over ``(B, S, H, D)`` tensors.
 
-    ``backend``: ``None`` routes by shape (see the module docstring);
-    ``"plain"`` forces the plain path. Returns ``(B, Sq, H, D)``.
+    ``backend``: ``None`` routes by shape; a name of ``BACKENDS`` forces a
+    route (see the module docstring). Returns ``(B, Sq, H, D)``.
     """
-    if backend not in (None, "plain"):
+    if backend is not None and backend not in BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}")
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    route = "plain" if backend == "plain" else select_route(sq, sk)
+    route = select_route(sq, sk) if backend is None else BACKENDS[backend]
     if route == "plain":
         return mha_reference(q, k, v, scale=scale)
     if route == "folded":
         out = folded_attention(q.reshape(b, sq, h * d), k.reshape(b, sk, h * d),
                                v.reshape(b, sk, h * d), heads=h, scale=scale)
         return out.reshape(b, sq, h, d)
+
+    if route == "short_legacy":
+        # K9 reads (B*H, S, 64) slices through their strides: the transposed
+        # views go in as they are where B*H flattens, else as a copy
+        out = short_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), scale=scale)
+        return out.transpose(1, 2)
 
     def heads_first(x):
         return x.transpose(1, 2).contiguous()

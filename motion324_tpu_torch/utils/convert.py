@@ -21,6 +21,10 @@
   (``unet``, ``vae``) -> the state dicts of the port's ``UNet2p5D`` and
   ``AutoencoderKL``, whose module names are the flax names
   (:func:`flax_to_state_dict`).
+- :func:`u2net_params_from_jax`, :func:`isnet_params_from_jax`: the JAX
+  package's U2Net / ISNet variables (``{"params", "batch_stats"}``) -> the
+  public ``u2net.pth`` / ``isnet-general-use`` state dict that the port's
+  networks load as it is.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import torch
 __all__ = ["params_from_jax", "load_reference_state_dict",
            "shape_params_from_jax", "dinov2_hf_state_dict",
            "hunyuan_ckpt_state_dicts", "flax_to_state_dict",
-           "paint_params_from_jax"]
+           "paint_params_from_jax", "u2net_params_from_jax",
+           "isnet_params_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -344,3 +349,71 @@ def paint_params_from_jax(params: dict):
     ``UNet2p5D`` and ``AutoencoderKL``."""
     return (flax_to_state_dict(params["unet"]["params"]),
             flax_to_state_dict(params["vae"]["params"]))
+
+
+_U2NET_HEIGHTS = {"stage1": 7, "stage2": 6, "stage3": 5, "stage4": 4,
+                  "stage1d": 7, "stage2d": 6, "stage3d": 5, "stage4d": 4}
+
+
+def _conv(out: dict, name: str, p: dict) -> None:
+    out[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _conv_bn(out: dict, name: str, p: dict, stats: dict,
+             conv: str = "conv_s1", bn: str = "bn_s1") -> None:
+    """The JAX ``_ConvBNReLU`` {conv, bn} (+ its batch stats) -> a public
+    REBNCONV ``{conv_s1, bn_s1}`` (or the stem's ``{conv, bn}``)."""
+    _conv(out, f"{name}.{conv}", p["conv"])
+    out[f"{name}.{bn}.weight"] = _t(p["bn"]["scale"])
+    out[f"{name}.{bn}.bias"] = _t(p["bn"]["bias"])
+    out[f"{name}.{bn}.running_mean"] = _t(stats["bn"]["mean"])
+    out[f"{name}.{bn}.running_var"] = _t(stats["bn"]["var"])
+    out[f"{name}.{bn}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _u2net_stages(out: dict, params: dict, stats: dict) -> None:
+    """The RSU stages: ``conv_in``/``enc_i``/``bottom``/``dec_i`` ->
+    ``rebnconvin``/``rebnconv{i+1}``/``rebnconv{h}``/``rebnconv{i+1}d``;
+    RSU4F's ``e1..e4``/``d3..d1`` -> ``rebnconv1..4``/``rebnconv3d..1d``."""
+    for st, h in _U2NET_HEIGHTS.items():
+        names = {"conv_in": "rebnconvin", "bottom": f"rebnconv{h}"}
+        for i in range(h - 1):
+            names[f"enc_{i}"] = f"rebnconv{i + 1}"
+            names[f"dec_{i}"] = f"rebnconv{i + 1}d"
+        for ours, theirs in names.items():
+            _conv_bn(out, f"{st}.{theirs}", params[st][ours], stats[st][ours])
+    for st in ("stage5", "stage6", "stage5d"):
+        names = {"conv_in": "rebnconvin",
+                 **{f"e{i}": f"rebnconv{i}" for i in range(1, 5)},
+                 **{f"d{i}": f"rebnconv{i}d" for i in (3, 2, 1)}}
+        for ours, theirs in names.items():
+            _conv_bn(out, f"{st}.{theirs}", params[st][ours], stats[st][ours])
+
+
+def u2net_params_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's U2Net variables (numpy, ``{"params",
+    "batch_stats"}``) -> the public ``u2net.pth`` state dict, which the
+    port's :class:`~motion324_tpu_torch.inference.segmentation.U2Net`
+    loads as it is (the inverse of the JAX ``convert_u2net``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: dict[str, torch.Tensor] = {}
+    _u2net_stages(out, params, stats)
+    for i in range(1, 7):
+        _conv(out, f"side{i}", params[f"side{i}"])
+    _conv(out, "outconv", params["outconv"])
+    return out
+
+
+def isnet_params_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's ISNet variables (numpy, ``{"params",
+    "batch_stats"}``) -> the DIS ``isnet-general-use`` state dict the port's
+    ``ISNet`` loads (the stem ``conv_in.{conv,bn}``, the RSU stages,
+    ``side1``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: dict[str, torch.Tensor] = {}
+    _conv_bn(out, "conv_in", params["conv_in"], stats["conv_in"],
+             conv="conv", bn="bn")
+    _u2net_stages(out, params, stats)
+    _conv(out, "side1", params["side1"])
+    return out

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 flash, K6 single-KV and K2 head-folded
 forwards, with and without the LSE output; K3 / K4 flash and K5 head-folded
-backwards; K7 voxel-masked flash attention; K8 the rasterizer) against
-their plain PyTorch versions, on the card.
+backwards; K7 voxel-masked flash attention; K8 the rasterizer; K9 short
+attention forward and backward) against their plain PyTorch versions, on
+the card.
 
 Every test here needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs on a machine that has only PyTorch; there, skip the
@@ -27,6 +28,7 @@ from motion324_tpu_torch.ops.masked_attention import (
     masked_attention_reference, masked_flash_attention)
 from motion324_tpu_torch.ops.rasterizer import (bin_faces, raster_reference,
                                                 rasterize)
+from motion324_tpu_torch.ops import short_attention as sa
 
 
 @pytest.fixture
@@ -305,3 +307,88 @@ def test_cuda_rasterize_matches_plain_bit_for_bit(cuda, w, h, n_faces):
     assert find.dtype == torch.int32 and find.shape == (h, w)
     assert torch.equal(find, want)
     assert (find > 0).float().mean().item() > 0.1
+
+
+# K9 forward: the same softmax as its plain version with P rounded against
+# a running max (as K1 and K2), held to the same shares of max |plain|. The
+# inputs are (B, S, H, 64) projections seen as (B, H, S, 64), as the legacy
+# route hands them over: B = 1 flattens into slices through the strides,
+# B = 3 is copied.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk", [(3, 37, 200), (1, 324, 324),
+                                     (1, 64, 2000), (3, 162, 64)])
+def test_cuda_short_matches_plain(cuda, dtype, b, sq, sk):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(b, n, 3, 64, generator=g, device=cuda).to(dtype)
+               .transpose(1, 2) for n in (sq, sk, sk))
+    before = sa.short_attention.launches
+    out = sa.short_attention(q, k, v, scale=0.31)
+    torch.cuda.synchronize()
+    assert sa.short_attention.launches == before + 1
+    assert out.shape == (b, 3, sq, 64)
+    assert_matches_plain(out, sa.short_attention_reference(q, k, v, scale=0.31))
+
+
+# K9 backward: two passes with no atomics, so it is repeatable bit for bit;
+# the forward with the compact LSE beside it.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,sk", [(324, 324), (64, 1500), (162, 64)])
+def test_cuda_short_lse_and_bwd_match_plain(cuda, dtype, sq, sk):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    rnd = lambda *s, f=1.0: (torch.randn(*s, generator=g, device=cuda) * f).to(dtype)
+    q, k, v = rnd(6, sq, 64, f=0.125), rnd(6, sk, 64), rnd(6, sk, 64)
+    before = (sa.short_attention.lse_launches, sa.short_attention_bwd.launches)
+    out, lse = sa._forward(q, k, v, 1.0, with_lse=True)
+    want, wlse = sa.short_attention_reference(q, k, v, scale=1.0, with_lse=True)
+    assert lse.shape == (6, sq) and lse.dtype == torch.float32
+    assert_matches_plain(out, want)
+    assert_matches_plain(lse, wlse, rel=REL_TOL[torch.float32])
+    do = rnd(6, sq, 64)
+    got = sa.short_attention_bwd(q, k, v, want, wlse, do)
+    again = sa.short_attention_bwd(q, k, v, want, wlse, do)
+    torch.cuda.synchronize()
+    assert (sa.short_attention.lse_launches, sa.short_attention_bwd.launches) \
+        == (before[0] + 1, before[1] + 2)
+    ref = sa.short_attention_bwd_reference(q, k, v, want, wlse, do)
+    for a, a2, w in zip(got, again, ref):
+        assert a.is_contiguous() and torch.equal(a, a2)
+        assert_matches_plain(a, w)
+
+
+@pytest.mark.cuda
+def test_cuda_legacy_route_carries_gradients(cuda):
+    """multi_head_attention(backend="short_legacy") on CUDA returns an
+    output with a grad_fn through ShortAttentionFn: one K9 forward with the
+    LSE, one K9 backward, gradients as the plain path's."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (torch.randn(2, n, 3, 64, generator=g, device=cuda)
+               .to(torch.bfloat16).requires_grad_() for n in (162, 64, 64))
+    before = (sa.short_attention.lse_launches, sa.short_attention_bwd.launches)
+    out = multi_head_attention(q, k, v, backend="short_legacy")
+    nodes, seen = [out.grad_fn], []
+    while nodes:
+        node = nodes.pop()
+        seen.append(type(node))
+        nodes += [n for n, _ in node.next_functions if n is not None]
+    assert sa.ShortAttentionFn._backward_cls in seen, seen
+    do = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (sa.short_attention.lse_launches, sa.short_attention_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(multi_head_attention(q, k, v, backend="plain"),
+                               (q, k, v), do)
+    for a, b in zip(got, want):
+        assert_matches_plain(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_short_raises_on_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 2, 16, 32, device=cuda)
+    with pytest.raises(ValueError):
+        sa.short_attention(q, q, q)          # head dim 32
+    q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        sa.short_attention(q, q, q)          # fp16

@@ -125,6 +125,39 @@ def test_texture_modules_load_neither_jax_nor_cv2_nor_pil(module):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+LEGACY_BATCH_MODULES = [
+    "motion324_tpu_torch.ops.short_attention", "motion324_tpu_torch.ops.attention",
+    "motion324_tpu_torch.inference.segmentation",
+    "motion324_tpu_torch.inference.preprocess",
+    "motion324_tpu_torch.inference.pipeline",
+    "motion324_tpu_torch.batch_inference", "motion324_tpu_torch.cli"]
+
+
+@pytest.mark.parametrize("module", LEGACY_BATCH_MODULES)
+def test_legacy_and_batch_modules_load_no_jax_cv2_pil_yaml(module):
+    """Each module of the legacy-route, segmentation and batch slice alone:
+    no JAX, and cv2, PIL and PyYAML, which the card's machine lacks, stay
+    unloaded until a function needs them; importing builds nothing."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'cv2', 'yaml'))\n"
+            "from motion324_tpu_torch.ops import _build\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad or _build._libs else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_batch_cli_raises_without_cuda(no_cuda, tmp_path):
+    from motion324_tpu_torch import batch_inference
+    (tmp_path / "jobs.txt").write_text("m.glb v.npy\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch_inference.main(["--list", str(tmp_path / "jobs.txt"),
+                              "--output", str(tmp_path)])
+
+
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
