@@ -15,7 +15,10 @@ Phases, each of which raises on failure (exit code non-zero):
    K3 and K4 (flash backward) and K5 (head-folded backward), dq/dk/dv and
    the LSE, beside torch's SDPA forward or backward. K6, the single-KV
    forward, with and without the LSE, at the volume query's shape and at
-   the edges of its route.
+   the edges of its route. Each K1 row prints its n_split (split-KV); K1
+   at the shape encoder and global shapes, with and without the LSE, gives
+   slice 0 of a B = 4 call the bits of a B = 1 call, and a call the same
+   bits twice.
 4. pipeline: MotionPipeline.run at release width in bf16 with seeded random
    weights on examples/synthetic/blob.glb and a seeded 16-frame 224^2 video;
    check the launch counts (17 flash, 40 folded, and per call site) and
@@ -71,7 +74,9 @@ Phases, each of which raises on failure (exit code non-zero):
    backward fault; the step time.
 11. batch + segmentation: run_batch on four seeded clips of blob.glb and
    one of a 42-vertex mesh with a seeded, calibrated full-width U2Net in
-   the graph; each clip of predict_batch against the clip alone; the bf16
+   the graph; each clip of predict_batch against the clip alone, and
+   where that gap comes from (the model in f32 with TF32 off; bf16 stage by
+   stage; K1 and K2 slices bit for bit at B = 1 against B = 4); the bf16
    mask against the f32 one; clips/s at B = 1 and B = 4 (decode chunk 6
    and 12); U2Net and ISNet ms per 224^2 frame.
 
@@ -232,6 +237,7 @@ def phase_kernels(torch, seed: int) -> list[dict]:
         ("flash_fwd", "shape_encoder", 1, 12, 64, 16384, True),
         ("flash_fwd", "ragged", 1, 12, 1000, 1296, False),
         ("flash_fwd", "k6_route", 1, 12, 972, 972, False),
+        ("flash_fwd", "kv300", 2, 12, 300, 300, False),
         ("flash_fwd", "dit", 2, 16, 1881, 1881, True),
         ("flash_fwd", "conditioner", 1, 24, 1370, 1370, True),
         ("folded_fwd", "local", 12, 12, 324, 324, True),
@@ -307,7 +313,8 @@ def phase_kernels(torch, seed: int) -> list[dict]:
             plain_ms = time_ms(torch, plain, n=3, reps=3)
             lib_ms = time_ms(torch, lib)
             bound_ms, bound_by = bound(b, h, sq, sk, dname, q.element_size())
-            log(f"  {kname:15s} {case:13s} {dname:8s} B{b} H{h} Sq{sq} Sk{sk}: "
+            log(f"  {kname:15s} {case:13s} {dname:8s} B{b} H{h} Sq{sq} Sk{sk}"
+                f"{split_note(kname, sq, sk, dname)}: "
                 f"max|d| {err:.2e} (tol {tol:.2e} = 2^{np.log2(REL_TOL[dname]):.0f}"
                 f" x max|plain| {top:.3f}; mean|plain| {mean:.4f}; last KV tile "
                 f"dropped {miss:.2e}) kernel {ms:.4f} ms "
@@ -319,7 +326,18 @@ def phase_kernels(torch, seed: int) -> list[dict]:
                              bound_by=bound_by))
             del q, k, v, out, want
     torch.cuda.empty_cache()
+    # K1's slices do not depend on the batch, and a call repeats
+    slice_bits(torch, seed, kernels=("K1",), strict=True)
     return rows
+
+
+def split_note(kname: str, sq: int, sk: int, dname: str) -> str:
+    """`` n_split N`` for a K1 row (bf16 calls split by split_count; f32
+    never), else nothing."""
+    if not kname.startswith("flash_fwd"):
+        return ""
+    from motion324_tpu_torch.ops.flash_attention import split_count
+    return f" n_split {split_count(sq, sk) if dname == 'bfloat16' else 1}"
 
 
 # (kernel, case, B, H, Sq, Sk, on the training path). The training shapes:
@@ -448,9 +466,10 @@ def phase_grad_kernels(torch, seed: int) -> list[dict]:
             detail = "; ".join(
                 f"{n} max|d| {e:.2e} / max|plain| {t:.3g} (tol {tl:.2e}, "
                 f"dropped tile {m:.2e})" for n, (e, t, tl, m) in errs.items())
-            log(f"  {kname:18s} {case:13s} {dname:8s} B{b} H{h} Sq{sq} Sk{sk}: "
-                f"{detail}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
-                f"{lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})")
+            log(f"  {kname:18s} {case:13s} {dname:8s} B{b} H{h} Sq{sq} Sk{sk}"
+                f"{split_note(kname, sq, sk, dname)}: {detail}; kernel "
+                f"{ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
             rows.append(dict(kernel=kname, case=case, dtype=dname, main=main,
                              max_abs_err=max(e for e, *_ in errs.values()),
                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -2312,6 +2331,162 @@ def calibrated_u2net(torch, seed: int, video: np.ndarray) -> dict:
     return {n: t.cpu() for n, t in net.state_dict().items()}
 
 
+# (kernel, site, B, S_q, S_k, heads) of the slice checks: one slice of a
+# B = 4 call against the same slice alone, through the dispatcher's
+# (B, S, H, 64) layout as the model hands it over; K2's batch is frames
+# (12 per clip)
+SLICE_CASES = [("K1", "shape_encoder", 1, 64, 16384, 12),
+               ("K1", "global", 1, 3888, 3888, 12),
+               ("K2", "local", 12, 324, 324, 12),
+               ("K2", "dino", 12, 257, 257, 12)]
+
+
+def slice_bits(torch, seed: int, kernels=("K1", "K2"), with_lse: bool = True,
+               strict: bool = False) -> list[tuple]:
+    """Whether each kernel of ``SLICE_CASES`` gives slice 0 of a B = 4 call
+    the same bits as a B = 1 call of that slice, and a call the same bits
+    twice. K1 also through the LSE forward (``with_lse``; (B, H, S, 64)
+    slices, the training path's layout). Returns (name, batch equal, max |d|,
+    twice equal) rows; ``strict`` raises on any difference."""
+    from motion324_tpu_torch.ops import flash_attention as fa
+    from motion324_tpu_torch.ops.attention import multi_head_attention
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    rows = []
+    for kern, site, b1, sq, sk, h in SLICE_CASES:
+        if kern not in kernels:
+            continue
+        rnd = lambda s: torch.randn(4 * b1, s, h, 64, generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+        q, k, v = rnd(sq), rnd(sk), rnd(sk)
+        runs = [("", lambda x, y, z: multi_head_attention(x, y, z))]
+        if kern == "K1" and with_lse:
+            hf = lambda x: x.transpose(1, 2).contiguous()
+            runs.append((" +LSE", lambda x, y, z: torch.cat(
+                [t.reshape(-1) for t in fa._forward(
+                    hf(x) * 0.125, hf(y), hf(z), 1.0, with_lse=True)])))
+        for tag, run in runs:
+            four = run(q, k, v)
+            again = run(q, k, v)
+            one = run(q[:b1].clone(), k[:b1].clone(), v[:b1].clone())
+            torch.cuda.synchronize()
+            if tag:
+                # slice 0's out and lse inside the flattened (out, lse)
+                n_out = 4 * b1 * h * sq * 64
+                part = torch.cat([four[: n_out // 4],
+                                  four[n_out: n_out + b1 * h * sq]])
+            else:
+                part = four[:b1]
+            equal = torch.equal(part, one)
+            diff = (part.float() - one.float()).abs().max().item()
+            twice = torch.equal(four, again)
+            rows.append((f"{kern} {site}{tag}", equal, diff, twice))
+            log(f"  {kern} {site}{tag} (B=1 of {b1}x{h} heads, {sq} x {sk}): "
+                f"slice 0 of B = 4 {'==' if equal else '!='} B = 1 bit for "
+                f"bit (max|d| {diff:.3e}); two runs "
+                f"{'==' if twice else '!='} bit for bit")
+            del four, again, one, part
+        del q, k, v
+    torch.cuda.empty_cache()
+    if strict:
+        bad = [r for r in rows if not (r[1] and r[3])]
+        if bad:
+            raise AssertionError(f"results depend on the batch or the run: {bad}")
+    return rows
+
+
+def batch_breakdown(torch, pipe, seg_sd, inputs, inputs4, videos) -> None:
+    """Where the batched clips' gap comes from: (1) predict_batch at B = 4
+    against each clip alone with the model in f32 and TF32 off; (2) bf16 by
+    stage on the first window: the four encode_shape latents against the
+    B = 1 latent, each clip's video tokens, the tokens of a B = 1 call fed
+    the B = 4 latent of its clip (the video stage alone), the decoded
+    points, and the points of a B = 1 decode of the B = 4 tokens (the
+    decoder alone); inside encode_shape, the shape samples' point
+    features (Fourier embedding and a Linear), the cross-attention block
+    (K1 inside), a point block, each of its Linear layers and its plain
+    attention fed the same rows at both batches; (3) each attention kernel
+    alone (slice_bits)."""
+    from motion324_tpu_torch.inference.pipeline import MotionPipeline
+    from motion324_tpu_torch.ops.attention import mha_reference
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    f32 = MotionPipeline(dataclasses.replace(pipe.cfg, dtype=torch.float32),
+                         state_dict=pipe.model.state_dict(), window=12,
+                         seg_params=seg_sd)
+    four = f32.predict_batch(inputs4, videos, "u2net")
+    errs = [float(np.abs(four[i] - f32.predict(inputs, videos[i], "u2net")[0]).max()
+                  / np.abs(four[i]).max()) for i in range(4)]
+    log(f"  step 0 (1) f32, TF32 off: B = 4 against each clip alone, "
+        f"max|d| / max|traj| {[f'{e:.3e}' for e in errs]}")
+    del f32, four
+    torch.cuda.empty_cache()
+
+    m = pipe.model
+    ten = lambda a: torch.as_tensor(np.ascontiguousarray(a)).cuda()
+    shape = lambda inp: [ten(inp[k]) for k in ("ref_shape_pcd",
+                                               "ref_shape_normals",
+                                               "ref_shape_rgbs")]
+    pts = lambda inp: [ten(inp[k]) for k in ("ref_pcd", "ref_normal", "ref_rgb")]
+    chunk = pipe.decode_chunk
+
+    def decode(tokens, p):
+        n = p[0].shape[1]
+        return torch.cat([m.decode_points(tokens, *(x[:, i:i + chunk] for x in p))
+                          for i in range(0, n, chunk)], dim=2)
+    with torch.inference_mode():
+        mf4, mf1 = m.encode_shape(*shape(inputs4)), m.encode_shape(*shape(inputs))
+        x = ten(videos[:, :12]).float() / 255.0
+        x = pipe._mask(x, "u2net", pipe.seg_net)
+        tok4 = m.encode_video(x, mf4)
+        pts4 = decode(tok4, pts(inputs4))
+        feat4 = m._point_features(*shape(inputs4))
+        feat1 = m._point_features(*shape(inputs))
+        tokens = lambda b: m.learnable_tokens.to(m.dtype).expand(b, -1, -1)
+        cross4 = m.encoder_cross_attn(tokens(4), feat4, feat4)
+        cross1 = m.encoder_cross_attn(tokens(1), feat1, feat1)
+        # a point block and one of its Linear layers fed the same rows at
+        # B = 4 and B = 1: 64 tokens a mesh, so the matrix products have
+        # 256 rows against 64
+        blk = m.points_transformer_blocks[0]
+        same = lambda f, x1: [rel_max(y, f(x1)[0])
+                              for y in f(x1.expand(4, *x1.shape[1:]).contiguous())]
+        stage = {"encode_shape's point features (Fourier embedding, Linear)":
+                 [rel_max(feat4[i], feat1[0]) for i in range(4)],
+                 "encode_shape's cross-attention block (K1 inside)":
+                 [rel_max(cross4[i], cross1[0]) for i in range(4)],
+                 "a point block on the same input (plain attention, Linear)":
+                 same(blk, cross1)}
+        # that block's pieces on the same 64 rows at both batches: each
+        # Linear (cuBLAS), and the plain attention over 64 keys
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for name, mod in blk.named_modules():
+            if isinstance(mod, torch.nn.Linear):
+                x1 = torch.randn(1, 64, mod.in_features, generator=gen,
+                                 device="cuda").to(m.dtype)
+                stage[f"its Linear {name} {mod.in_features} -> "
+                      f"{mod.out_features} on 64 rows"] = same(mod, x1)
+        x1 = torch.randn(1, 64, 12, 64, generator=gen, device="cuda").to(m.dtype)
+        stage["its plain attention (mha_reference, 12 heads x 64 x 64)"] = \
+            same(lambda x: mha_reference(x, x, x), x1)
+        stage.update({"encode_shape latent": [], "video tokens": [],
+                 "video tokens, B = 1 fed the B = 4 latent": [],
+                      "decoded points": [], "decoded points, B = 1 decode of "
+                      "the B = 4 tokens": []})
+        for i in range(4):
+            tok1 = m.encode_video(x[i:i + 1], mf1)
+            stage["encode_shape latent"].append(rel_max(mf4[i], mf1[0]))
+            stage["video tokens"].append(rel_max(tok4[i], tok1[0]))
+            stage["video tokens, B = 1 fed the B = 4 latent"].append(
+                rel_max(tok4[i], m.encode_video(x[i:i + 1], mf4[i:i + 1])[0]))
+            stage["decoded points"].append(rel_max(pts4[i], decode(tok1, pts(inputs))[0]))
+            stage["decoded points, B = 1 decode of the B = 4 tokens"].append(
+                rel_max(pts4[i], decode(tok4[i:i + 1], pts(inputs))[0]))
+    for name, v in stage.items():
+        log(f"  step 0 (2) bf16, window 0, {name}: B = 4 against B = 1, "
+            f"max|d| / max|ref| {[f'{e:.3e}' for e in v]}")
+    slice_bits(torch, 0, strict=True)
+
+
 def phase_batch(torch, seed: int, repo: str) -> None:
     """run_batch with U2Net in the graph (seeded random full-width weights)
     on B = 4 seeded clips of blob.glb and one clip of a 42-vertex mesh;
@@ -2369,6 +2544,7 @@ def phase_batch(torch, seed: int, repo: str) -> None:
         f"{[f'{e:.3e}' for e in errs]} (tol {E2E_REL_TOL:.0e})")
     if not worst <= E2E_REL_TOL:
         raise AssertionError(f"batched clips disagree with single clips: {worst:.3e}")
+    batch_breakdown(torch, pipe, seg_sd, inputs, inputs4, videos)
 
     # the mask in bf16 (the pipeline's) against the same weights in f32
     net32 = build_u2net(seg_sd, "cuda", torch.float32)

@@ -101,8 +101,9 @@ def multi_head_attention(q, k, v, *, scale: float | None = None,
                               v.transpose(1, 2), scale=scale)
         return out.transpose(1, 2)
 
-    def heads_first(x):
-        return x.transpose(1, 2).contiguous()
-    out = flash_attention(heads_first(q), heads_first(k), heads_first(v),
-                          scale=scale)
+    # K1 reads the (B, H, S, D) views through their strides and writes its
+    # output heads-last, so neither way needs a copy (K6 and a
+    # differentiated call copy inside flash_attention)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), scale=scale)
     return out.transpose(1, 2)

@@ -7,6 +7,14 @@ when the KV padded to its block fits one block of at most 1 024 keys (KV in
 [1, 256] and [385, 1024]); K1, ``csrc/flash_fwd.cu``, the online softmax
 over KV tiles, otherwise.
 
+K1 reads q, k and v through their (batch, head, row) strides, so the
+dispatcher's ``(B, S, H, 64)`` views go in as they are, and writes its
+output in q's layout. In bf16 it cuts the keys of a call with few query
+tiles into :func:`split_count` ranges, each a block of its own, and adds
+the partial results in split order (:func:`flash_attention_split_reference`
+is the plain version of that arithmetic). The count depends on (Sq, Sk)
+alone, never on B*H, so a slice's output has the same bits at any batch.
+
 :func:`flash_attention` is differentiable. A call that needs no gradient
 launches the forward kernel (counted in ``flash_attention.launches`` for K1,
 ``flash_attention.single_kv_launches`` for K6). A call with an input that
@@ -23,6 +31,7 @@ tensor every step computes its plain version instead.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -30,9 +39,10 @@ import torch
 from motion324_tpu_torch.ops import _build
 
 __all__ = ["flash_attention", "flash_attention_reference",
-           "flash_attention_bwd", "flash_attention_bwd_reference",
-           "FlashAttentionFn", "FUSED_BWD_MAX_KV", "SINGLE_KV_MAX",
-           "single_kv_route"]
+           "flash_attention_split_reference", "flash_attention_bwd",
+           "flash_attention_bwd_reference", "FlashAttentionFn",
+           "FUSED_BWD_MAX_KV", "SINGLE_KV_MAX", "single_kv_route",
+           "split_count", "split_ranges"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -44,6 +54,16 @@ FUSED_BWD_MAX_KV = 4096
 # the JAX package's flash forward aims at
 SINGLE_KV_MAX = 1024
 _KV_BLOCK_TARGET = 1024
+
+# K1's tiles: 128 query rows (64 when Sq <= 64) and 128 keys. A call with
+# fewer than SPLIT_MAX_Q_TILES query tiles cuts its keys so that each (batch,
+# head) has about SPLIT_BLOCKS blocks: the shape encoder's 64 queries x
+# 16 384 keys give 16 splits of 1 024 keys, 192 blocks at 12 heads. The
+# kernel takes at most 16 splits (kMaxSplits in csrc/flash_fwd.cu)
+K1_Q_TILE = 128
+K1_KV_TILE = 128
+SPLIT_MAX_Q_TILES = 8
+SPLIT_BLOCKS = 16
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -81,6 +101,7 @@ def _pick_kv_block(seq: int) -> int:
     return fall
 
 
+@functools.lru_cache(maxsize=None)
 def single_kv_route(sk: int) -> bool:
     """Whether a flash call over ``sk`` keys takes K6: the KV padded to its
     block is that one block, of at most ``SINGLE_KV_MAX`` keys, as in the
@@ -95,7 +116,12 @@ def scale_in_dtype(q: torch.Tensor, scale: float | None) -> float:
     folded into q."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return float(torch.tensor(scale, dtype=q.dtype).item())
+    return _rounded(float(scale), q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(x, dtype=dtype).item())
 
 
 def attention_reference(q, k, v, scale: float, with_lse: bool = False):
@@ -126,6 +152,58 @@ def flash_attention_reference(q, k, v, *, scale: float | None = None,
     if not with_lse:
         return out
     return out[0], out[1].reshape(-1, q.shape[-2])
+
+
+@functools.lru_cache(maxsize=None)
+def split_count(sq: int, sk: int) -> int:
+    """K1's number of key ranges for Sq queries over Sk keys: 1 at
+    ``SPLIT_MAX_Q_TILES`` query tiles or more (the long self-attention
+    rows), else about ``SPLIT_BLOCKS`` blocks per (batch, head), each range
+    whole 128-key tiles and none empty. A function of (Sq, Sk) only."""
+    q_tiles = -(-sq // K1_Q_TILE)
+    if q_tiles >= SPLIT_MAX_Q_TILES:
+        return 1
+    tiles = -(-sk // K1_KV_TILE)
+    want = max(1, min(tiles, -(-SPLIT_BLOCKS // q_tiles)))
+    return -(-tiles // -(-tiles // want))
+
+
+def split_ranges(sk: int, n_split: int) -> list[tuple[int, int]]:
+    """The ``[begin, end)`` key range of each of K1's ``n_split`` splits:
+    ``ceil(tiles / n_split)`` whole 128-key tiles each, the last one ragged
+    (the kernel computes the same)."""
+    per = -(-(-(-sk // K1_KV_TILE)) // n_split) * K1_KV_TILE
+    return [(i * per, min(sk, (i + 1) * per)) for i in range(n_split)]
+
+
+def flash_attention_split_reference(q, k, v, n_split: int, *,
+                                    scale: float | None = None):
+    """Plain PyTorch version of K1's split-and-combine over ``(..., S, D)``:
+    each key range of :func:`split_ranges` gives a normalised partial output
+    and LSE in f32 (:func:`attention_reference` on that range, before the
+    rounding to q's dtype), and the splits are added in split order:
+    ``lse = log sum_i exp(lse_i)``, ``O = sum_i exp(lse_i - lse) O_i``,
+    rounded to q's dtype. Returns ``(out, lse)``, lse f32 ``(..., Sq)``."""
+    sc = scale_in_dtype(q, scale)
+    parts = []
+    for a, b in split_ranges(k.shape[-2], n_split):
+        kk, vv = k[..., a:b, :], v[..., a:b, :]
+        s = torch.matmul((q * sc).float(), kk.float().transpose(-1, -2))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.matmul(p.to(v.dtype).float(), vv.float()) / l
+        parts.append((o, (m + torch.log(l)).squeeze(-1)))
+    lses = torch.stack([lse for _, lse in parts])
+    mx = lses.amax(dim=0)
+    total = torch.zeros_like(mx)
+    for lse in lses:
+        total = total + torch.exp(lse - mx)
+    lse = mx + torch.log(total)
+    out = torch.zeros_like(parts[0][0])
+    for o, part_lse in parts:
+        out = out + torch.exp(part_lse - lse).unsqueeze(-1) * o
+    return out.to(q.dtype), lse
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, scale: float | None = None):
@@ -164,10 +242,13 @@ def _load(name: str, argtypes) -> ctypes.CDLL:
 
 _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_K1_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
+               ctypes.c_int, ctypes.c_void_p])
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def _check(q, k, v):
+def _check_shapes(q, k, v):
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention takes (B, H, S, D) q/k/v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -181,57 +262,157 @@ def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if k.shape[2] == 0 or q.shape[2] == 0:
+        raise ValueError("empty sequence")
+
+
+def _check(q, k, v) -> list[int]:
+    """What K1 takes: (B, H, S, 64) q/k/v of one dtype on one device, each
+    with unit stride in the head dim, 16-byte-aligned (batch, head, row)
+    strides and a 16-byte-aligned base: contiguous tensors and the
+    dispatcher's transposed ``(B, S, H, 64)`` views alike. Returns the
+    (batch, head, row) strides of q, k and v in elements; a dimension of
+    size 1 gets one that a tensor map takes (it is never stepped). Each call
+    of K1 pays for this on the host, so it reads each attribute once."""
+    qs, ks, vs = q.shape, k.shape, v.shape
+    if (len(qs) != 4 or len(ks) != 4 or ks != vs or qs[:2] != ks[:2]
+            or qs[3] != 64 or ks[3] != 64 or qs[2] == 0 or ks[2] == 0
+            or q.dtype not in _DTYPES or k.dtype != q.dtype
+            or v.dtype != q.dtype or k.device != q.device
+            or v.device != q.device):
+        _check_shapes(q, k, v)    # raises, saying what is wrong
+    per16 = 16 // q.element_size()
+    strides = []
+    for name, t, shape in (("q", q, qs), ("k", k, ks), ("v", v, vs)):
+        st = t.stride()
+        if st[3] != 1:
+            raise ValueError(f"the CUDA kernel takes {name} with unit stride "
+                             f"in the head dim, got strides {st}")
+        if t.data_ptr() % 16 or (st[0] % per16 and shape[0] > 1) \
+                or (st[1] % per16 and shape[1] > 1) \
+                or (st[2] % per16 and shape[2] > 1):
+            raise ValueError(f"{name}'s base or rows are not 16-byte aligned "
+                             f"(strides {st})")
+        pad = shape[2] * 64
+        strides += [st[0] if shape[0] > 1 else pad,
+                    st[1] if shape[1] > 1 else pad,
+                    st[2] if shape[2] > 1 else pad]
+    return strides
+
+
+def _check_contiguous(q, k, v):
+    """What K6 and the backward kernels take: contiguous, aligned
+    (B, H, S, 64) q/k/v."""
+    _check_shapes(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"the CUDA kernel takes a contiguous {name}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-    if k.shape[2] == 0 or q.shape[2] == 0:
-        raise ValueError("empty sequence")
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(name: str, q, k, v, scale: float, with_lse: bool):
-    """Launch forward kernel ``name`` (``flash_fwd`` or ``flash_single_kv``,
-    one C signature) on CUDA tensors; returns ``(out, lse or None)``."""
-    _check(q, k, v)
+def _forward_k1(q, k, v, scale: float, with_lse: bool):
+    """K1 on CUDA tensors, whatever the KV length: ``(out, lse or None)``,
+    out (B, H, Sq, 64) laid out heads-last where q is, else contiguous. bf16
+    calls split their keys by :func:`split_count`. The host work here is
+    part of each call's time at the short rows, so it is kept lean."""
+    strides = _check(q, k, v)
+    dev = q.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _forward_k1(q, k, v, scale, with_lse)
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    if q.stride(1) < q.stride(2):
+        # a (B, S, H, 64) view: the output keeps that layout, so that the
+        # dispatcher's transpose back is contiguous
+        out = torch.empty((b, sq, h, 64), dtype=q.dtype, device=dev).transpose(1, 2)
+        strides += [sq * h * 64, 64, h * 64]
+    else:
+        out = torch.empty((b, h, sq, 64), dtype=q.dtype, device=dev)
+        strides += [h * sq * 64, sq * 64, 64]
+    n_split = split_count(sq, sk) if q.dtype == torch.bfloat16 else 1
+    # one f32 buffer (one allocation): the LSE, then for a split call the
+    # partial LSEs and outputs; the LSE is a view, so the workspace lives
+    # as long as it does
+    rows = b * h * sq
+    n_lse = rows if with_lse else 0
+    n_part = n_split * rows if n_split > 1 else 0
+    buf = (torch.empty(n_lse + 65 * n_part, dtype=torch.float32, device=dev)
+           if n_lse + n_part else None)
+    base = 0 if buf is None else buf.data_ptr()
+    lse = buf[:rows].view(b * h, sq) if with_lse else None
+    part_lse = base + 4 * n_lse if n_part else None
+    part_o = base + 4 * (n_lse + n_part) if n_part else None
+    # the current stream's handle without a Stream object (5 us less host
+    # time per call on the H100's machine)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    # one ticket per (query tile, slice); a tile is 128 rows, or all of
+    # Sq <= 64
+    tickets = (_tickets(dev, stream, -(-sq // K1_Q_TILE) * b * h)
+               if n_split > 1 else None)
+    rc = _load("flash_fwd", _K1_ARGS).m324_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        base if with_lse else None, part_o, part_lse,
+        None if tickets is None else tickets.data_ptr(),
+        0 if tickets is None else tickets.numel(), b, h, sq, sk,
+        (ctypes.c_longlong * 12)(*strides), n_split, scale, _DTYPES[q.dtype],
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd launch failed: error {rc} (CUDA error "
+                           f"below 900; 900 no cuTensorMapEncodeTiled; 901 an "
+                           f"empty split; 902 too few tickets; 1000 + the "
+                           f"driver's tensor-map error)")
+    if with_lse:
+        flash_attention.lse_launches += 1
+    else:
+        flash_attention.launches += 1
+    return out, lse
+
+
+# the split calls' tickets: one zeroed int32 per (query tile, slice), by
+# (device, stream), since a call leaves them zeroed for the next call on its
+# stream only
+_TICKETS: dict = {}
+
+
+def _tickets(dev, stream, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed tickets for K1 calls on ``stream``."""
+    buf = _TICKETS.get((dev.index, stream))
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[(dev.index, stream)] = torch.zeros(
+            max(n, 4096), dtype=torch.int32, device=dev)
+    return buf
+
+
+def _forward_single_kv(q, k, v, scale: float, with_lse: bool):
+    """K6 on CUDA tensors, as contiguous (B*H, S, 64) slices (the
+    dispatcher's views are copied); raises past ``SINGLE_KV_MAX`` keys."""
+    if k.shape[2] > SINGLE_KV_MAX:
+        raise ValueError(f"the single-KV kernel takes at most {SINGLE_KV_MAX} "
+                         f"keys, got {k.shape[2]}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_contiguous(q, k, v)
     b, h, sq, _ = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     with torch.cuda.device(q.device):
-        rc = getattr(_load(name, _FWD_ARGS), f"m324_{name}")(
+        rc = _load("flash_single_kv", _FWD_ARGS).m324_flash_single_kv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b * h, sq, k.shape[2],
             scale, _DTYPES[q.dtype], _stream(q))
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    return out, lse
-
-
-def _forward_k1(q, k, v, scale: float, with_lse: bool):
-    """K1 on CUDA tensors, whatever the KV length."""
-    out = _launch_fwd("flash_fwd", q, k, v, scale, with_lse)
-    if with_lse:
-        flash_attention.lse_launches += 1
-    else:
-        flash_attention.launches += 1
-    return out
-
-
-def _forward_single_kv(q, k, v, scale: float, with_lse: bool):
-    """K6 on CUDA tensors; raises past ``SINGLE_KV_MAX`` keys."""
-    if k.shape[2] > SINGLE_KV_MAX:
-        raise ValueError(f"the single-KV kernel takes at most {SINGLE_KV_MAX} "
-                         f"keys, got {k.shape[2]}")
-    out = _launch_fwd("flash_single_kv", q, k, v, scale, with_lse)
+        raise RuntimeError(f"flash_single_kv launch failed: CUDA error {rc}")
     if with_lse:
         flash_attention.single_kv_lse_launches += 1
     else:
         flash_attention.single_kv_launches += 1
-    return out
+    return out, lse
 
 
 def _forward(q, k, v, scale: float, with_lse: bool):
@@ -253,7 +434,7 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     CPU: :func:`flash_attention_bwd_reference`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, scale=1.0)
-    _check(q, k, v)
+    _check_contiguous(q, k, v)
     b, h, sq, _ = q.shape
     sk = k.shape[2]
     do = do.contiguous()
@@ -295,8 +476,9 @@ flash_attention_bwd.two_pass_launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Attention over ``(B, H, S, D)`` with q already multiplied by the logit
-    scale; the forward saves the f32 LSE ``(B*H, Sq)`` for the backward."""
+    """Attention over contiguous ``(B, H, S, D)`` with q already multiplied
+    by the logit scale; the forward saves the f32 LSE ``(B*H, Sq)`` for the
+    backward (K3 / K4 read contiguous tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -314,14 +496,17 @@ def flash_attention(q, k, v, *, scale: float | None = None) -> torch.Tensor:
     """Exact attention ``softmax(q k^T * scale) v`` over ``(B, H, S, D)``.
 
     Returns ``(B, H, Sq, D)`` in q's dtype. ``scale`` defaults to
-    ``1/sqrt(D)``. Differentiable (see the module docstring).
+    ``1/sqrt(D)``. Differentiable (see the module docstring): a
+    differentiated call runs on contiguous copies of its inputs, as the
+    backward kernels take them.
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     scale = scale_in_dtype(q, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttentionFn.apply(q * scale, k, v)
+        return FlashAttentionFn.apply((q * scale).contiguous(), k.contiguous(),
+                                      v.contiguous())
     return _forward(q, k, v, scale, with_lse=False)[0]
 
 

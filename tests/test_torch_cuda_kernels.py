@@ -57,14 +57,28 @@ def assert_matches_plain(out, want, rel=None):
     assert err <= tol, f"max |kernel - plain| {err:.3e} > {tol:.3e}"
 
 
+def _bhsd(g, cuda, dtype, b, h, s, strided, scale=1.0):
+    """(B, H, S, 64) randn: contiguous, or the transposed view of a
+    (B, S, H, 64) tensor, as the dispatcher hands K1 its inputs."""
+    if strided:
+        x = torch.randn(b, s, h, 64, generator=g, device=cuda) * scale
+        return x.to(dtype).transpose(1, 2)
+    return (torch.randn(b, h, s, 64, generator=g, device=cuda) * scale).to(dtype)
+
+
+# K1 at a KV length of the 257-384 band that K6 leaves to it, a split call
+# (64 queries x 16 384 keys: 16 splits), and the ragged 1 000 x 1 296 row;
+# each with contiguous and with (B, S, H, 64)-strided inputs
 @pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True], ids=["bhsd", "bshd"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("sq,sk", [(200, 300), (64, 2000), (324, 324)])
-def test_cuda_flash_matches_plain(cuda, dtype, sq, sk):
+@pytest.mark.parametrize("sq,sk", [(200, 300), (64, 2000), (324, 324),
+                                   (300, 300), (64, 16384), (1000, 1296)])
+def test_cuda_flash_matches_plain(cuda, dtype, sq, sk, strided):
     g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(2, 3, sq, 64, generator=g, device=cuda).to(dtype)
-    k = torch.randn(2, 3, sk, 64, generator=g, device=cuda).to(dtype)
-    v = torch.randn(2, 3, sk, 64, generator=g, device=cuda).to(dtype)
+    q = _bhsd(g, cuda, dtype, 2, 3, sq, strided)
+    k = _bhsd(g, cuda, dtype, 2, 3, sk, strided)
+    v = _bhsd(g, cuda, dtype, 2, 3, sk, strided)
     before = flash_attention.launches
     out = flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -154,22 +168,25 @@ def test_cuda_flash_bwd_matches_plain(cuda, dtype, sq, sk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True], ids=["bhsd", "bshd"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_lse_forwards_match_plain(cuda, dtype):
+@pytest.mark.parametrize("sq,sk", [(200, 1100), (64, 4096), (1000, 1296)])
+def test_cuda_lse_forwards_match_plain(cuda, dtype, sq, sk, strided):
+    """K1 with the LSE (64 x 4 096, the training shape encoder, is split
+    in bf16: its LSE comes from the combine), then K2 with the LSE."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    q, k, v = (torch.randn(2, 3, n, 64, generator=g, device=cuda).to(dtype)
-               for n in (200, 1100, 1100))
+    q, k, v = (_bhsd(g, cuda, dtype, 2, 3, n, strided) for n in (sq, sk, sk))
     from motion324_tpu_torch.ops import flash_attention as fa
     from motion324_tpu_torch.ops import folded_attention as fo
     out, lse = fa._forward(q, k, v, 0.125, with_lse=True)
     want, wlse = flash_attention_reference(q, k, v, with_lse=True)
     assert_matches_plain(out, want)
     assert_matches_plain(lse, wlse, rel=REL_TOL[torch.float32])
+    q, k, v = (_bhsd(g, cuda, dtype, 2, 3, n, strided) for n in (200, 300, 300))
     f = lambda x: x.transpose(1, 2).flatten(2)
-    out, lse = fo._forward(f(q), f(k)[:, :300], f(v)[:, :300], 3, 0.125,
-                           with_lse=True)
-    want, wlse = folded_attention_reference(f(q), f(k)[:, :300], f(v)[:, :300],
-                                            heads=3, with_lse=True)
+    out, lse = fo._forward(f(q), f(k), f(v), 3, 0.125, with_lse=True)
+    want, wlse = folded_attention_reference(f(q), f(k), f(v), heads=3,
+                                            with_lse=True)
     assert lse.shape == (2, 200, 3)
     assert_matches_plain(out, want)
     assert_matches_plain(lse, wlse, rel=REL_TOL[torch.float32])
@@ -198,11 +215,12 @@ def test_cuda_folded_bwd_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,sk", [(150, 1100), (324, 324)])
+@pytest.mark.parametrize("sq,sk", [(150, 1100), (324, 324), (64, 4200)])
 def test_cuda_attention_carries_gradients(cuda, sq, sk):
     """On CUDA, attention that needs grad returns an output with a grad_fn
-    (K1 / K2 with the LSE, then K3 / K5), and the gradients reaching q, k
-    and v match those of the plain path."""
+    (K1 / K2 with the LSE, then K3 / K4 / K5), and the gradients reaching q,
+    k and v match those of the plain path. K1's LSE at 150 x 1 100 and
+    64 x 4 200 comes from its split path and feeds K3 and K4."""
     g = torch.Generator(device=cuda).manual_seed(6)
     q, k, v = (torch.randn(2, n, 3, 64, generator=g, device=cuda)
                .to(torch.bfloat16).requires_grad_() for n in (sq, sk, sk))
@@ -222,6 +240,37 @@ def test_cuda_attention_carries_gradients(cuda, sq, sk):
                                (q, k, v), do)
     for a, b in zip(got, want):
         assert_matches_plain(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1_split", "k1_split_lse", "k1_global",
+                                  "k1_global_lse", "k2_324", "k2_257"])
+def test_cuda_slices_do_not_depend_on_the_batch(cuda, case):
+    """Slice 0 of a B = 4 call has the bits of the same slice alone, and a
+    call repeats bit for bit: K1 (split at 64 x 16 384 and 64 x 4 096 with
+    the LSE, unsplit at 1 000 x 1 300) and K2 (324 and 257 tokens), through
+    the dispatcher's (B, S, H, 64) layout; the LSE forward on (B, H, S, 64)."""
+    from motion324_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(8)
+    sq, sk, b1 = {"k1_split": (64, 16384, 1), "k1_split_lse": (64, 4096, 1),
+                  "k1_global": (1000, 1300, 1), "k1_global_lse": (1000, 1300, 1),
+                  "k2_324": (324, 324, 3), "k2_257": (257, 257, 3)}[case]
+    q, k, v = (torch.randn(4 * b1, n, 3, 64, generator=g, device=cuda)
+               .to(torch.bfloat16) for n in (sq, sk, sk))
+    if case.endswith("_lse"):
+        def run(x, y, z):
+            hf = lambda t: t.transpose(1, 2).contiguous()
+            return fa._forward(hf(x) * 0.125, hf(y), hf(z), 1.0, with_lse=True)
+    else:
+        run = lambda x, y, z: (multi_head_attention(x, y, z),)
+    four, again = run(q, k, v), run(q, k, v)
+    one = run(q[:b1].clone(), k[:b1].clone(), v[:b1].clone())
+    torch.cuda.synchronize()
+    for a, a2, o in zip(four, again, one):
+        assert torch.equal(a, a2)
+        assert torch.equal(a[: o.shape[0]], o)
+    # a split call leaves its tickets zeroed for the next call
+    assert not any(t.any().item() for t in fa._TICKETS.values())
 
 
 # K6 computes exactly the plain version's function (one max over all keys,
