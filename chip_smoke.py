@@ -15,10 +15,10 @@ Phases, each of which raises on failure (exit code non-zero):
    K3 and K4 (flash backward) and K5 (head-folded backward), dq/dk/dv and
    the LSE, beside torch's SDPA forward or backward. K6, the single-KV
    forward, with and without the LSE, at the volume query's shape and at
-   the edges of its route. Each K1 row prints its n_split (split-KV); K1
-   at the shape encoder and global shapes, with and without the LSE, gives
-   slice 0 of a B = 4 call the bits of a B = 1 call, and a call the same
-   bits twice.
+   the edges of its route. Each K1, K3 and K4 row prints its n_split
+   (split-KV); K1 at the shape encoder and global shapes, with and without
+   the LSE, and K4 at 64 x 16 384 and 5 184^2 give slice 0 of a B = 4 call
+   the bits of a B = 1 call, and a call the same bits twice.
 4. pipeline: MotionPipeline.run at release width in bf16 with seeded random
    weights on examples/synthetic/blob.glb and a seeded 16-frame 224^2 video;
    check the launch counts (17 flash, 40 folded, and per call site) and
@@ -34,7 +34,8 @@ Phases, each of which raises on failure (exit code non-zero):
    per-parameter gradients against the plain attention path, and three
    injected backward faults past those tolerances; a falling loss over 10
    steps with no skips; the median step time, samples/s, peak memory and
-   one profiled step; a 16-frame window on K4; two steps of the Trainer;
+   one profiled step; a 16-frame window on K4, its gradients against the
+   plain path and an injected K4 dq fault; two steps of the Trainer;
    remat: forwards launched twice, the same gradients, less memory.
 6. shape: ShapeGenPipeline at the release width of Hunyuan3D-2 (DiT 16 + 32
    blocks of 1 024, ShapeVAE 16 layers of 1 024, DINOv2-giant 40 layers)
@@ -333,11 +334,15 @@ def phase_kernels(torch, seed: int) -> list[dict]:
 
 def split_note(kname: str, sq: int, sk: int, dname: str) -> str:
     """`` n_split N`` for a K1 row (bf16 calls split by split_count; f32
+    never) and a K3 / K4 row (K4's bf16 dq pass splits by the same rule, K3
     never), else nothing."""
-    if not kname.startswith("flash_fwd"):
-        return ""
-    from motion324_tpu_torch.ops.flash_attention import split_count
-    return f" n_split {split_count(sq, sk) if dname == 'bfloat16' else 1}"
+    import torch
+    from motion324_tpu_torch.ops.flash_attention import bwd_plan, split_count
+    if kname.startswith("flash_fwd"):
+        return f" n_split {split_count(sq, sk) if dname == 'bfloat16' else 1}"
+    if kname.startswith("flash_bwd"):
+        return f" n_split {bwd_plan(1, sq, sk, getattr(torch, dname))[1]}"
+    return ""
 
 
 # (kernel, case, B, H, Sq, Sk, on the training path). The training shapes:
@@ -369,7 +374,8 @@ def phase_grad_kernels(torch, seed: int) -> list[dict]:
     within REL_TOL of its own max |plain|, a plain version that drops the
     last 64 keys outside that limit; times beside the bound and, as the
     yardstick, torch's scaled_dot_product_attention (its forward, or its
-    backward alone: autograd.grad on a retained graph)."""
+    backward alone: autograd.grad on a retained graph); K3's and K4's bf16
+    calls at the paths' shapes also profiled, device time by kernel."""
     import torch.nn.functional as F
     from motion324_tpu_torch.ops import flash_attention as fa
     from motion324_tpu_torch.ops import folded_attention as fo
@@ -474,8 +480,13 @@ def phase_grad_kernels(torch, seed: int) -> list[dict]:
                              max_abs_err=max(e for e, *_ in errs.values()),
                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
+            if kname.startswith("flash_bwd") and dname == "bfloat16" and case != "ragged":
+                profile_step(torch, run, what=f"{kname}/{case}", host_ops=False)
             del q, k, v, o, lse, do
             torch.cuda.empty_cache()
+    # K4 adds no atomics: its slices do not depend on the batch, and a call
+    # repeats, split and unsplit
+    slice_bits(torch, seed, kernels=("K4",), strict=True)
     return rows
 
 
@@ -825,8 +836,8 @@ def kernel_group(name: str) -> str:
     n = name.lower()
     if "short_fwd" in n:
         return "K9 short_fwd"
-    if "bwd_dq_bf16<true>" in n or "bwd_dq_f32<true>" in n \
-            or "bwd_dkv_bf16<false, true>" in n or "bwd_dkv_f32<false, true>" in n:
+    if "bwd_dq_bf16" in n or "bwd_dq_f32<true>" in n \
+            or "bwd_dkv_bf16<false>" in n or "bwd_dkv_f32<false, true>" in n:
         return "K9 short_bwd"
     if "single_kv" in n:
         return "K6 flash_single_kv"
@@ -834,18 +845,23 @@ def kernel_group(name: str) -> str:
         return "K1 flash_fwd"
     if "folded_fwd" in n:
         return "K2 folded_fwd"
-    if "bwd_dkv_bf16<true, false>" in n or "bwd_dkv_f32<true, false>" in n:
+    if "bwd_dkv_hopper" in n:
+        return ("K3 flash_bwd fused" if "true>" in n
+                else "K4 flash_bwd two-pass")
+    if "bwd_prep" in n or "dq_from_acc" in n:
+        return "K3/K4 delta, dq cast"
+    if "bwd_dkv_f32<true, false>" in n:
         return "K3 flash_bwd fused"
-    if "bwd_dkv_bf16<true, true>" in n or "bwd_dkv_f32<true, true>" in n:
+    if "bwd_dkv_bf16<true>" in n or "bwd_dkv_f32<true, true>" in n:
         return "K5 folded_bwd"
-    if "bwd_dq_" in n or "bwd_dkv_bf16<false" in n or "bwd_dkv_f32<false" in n:
+    if "bwd_dq_" in n or "bwd_dkv_f32<false" in n:
         return "K4 flash_bwd two-pass"
     if "masked_fwd" in n:
         return "K7 masked_flash"
     if "raster_kernel" in n:
         return "K8 rasterize"
     if "f32_to_bf16" in n:
-        return "K3/K5 dq cast"
+        return "K5 dq cast"
     if any(w in n for w in ("gemm", "xmma", "cutlass", "nvjet")):
         return "matmul"
     if "memcpy" in n or "memset" in n:
@@ -967,7 +983,7 @@ def backward_faults(torch, fa, fo) -> dict:
     """Wrong backward kernels to inject, by name: (autograd Function, a map
     from its real backward to a faulty one). The global calls are those
     with more than 64 queries (the shape encoder has 64)."""
-    def k3_dq_zero(real):
+    def dq_zero(real):
         def f(ctx, do):
             glob = ctx.saved_tensors[0].shape[2] != 64
             dq, dk, dv = real(ctx, do)
@@ -991,7 +1007,7 @@ def backward_faults(torch, fa, fo) -> dict:
             return dq, dk * 0.9, dv, none
         return f
     return {
-        "K3 dq zeroed on the global call": (fa.FlashAttentionFn, k3_dq_zero),
+        "dq zeroed on the global call": (fa.FlashAttentionFn, dq_zero),
         "K5 dk 10% low": (fo.FoldedAttentionFn, k5_dk_low),
         "K3 drops the last 64 keys from dk/dv": (fa.FlashAttentionFn,
                                                  k3_drops_last_tile),
@@ -1086,8 +1102,8 @@ def phase_training(torch, seed: int) -> dict:
         f"grad norm {norm_k:.5f} vs {norm_p:.5f}; relative: "
         + ", ".join(f"{k} {v:.3e} (tol {TRAIN_TOL[k]:.0e})" for k, v in readings.items())
         + f"; worst parameter {worst_name}")
-    # the same step on the kernel path again: K3 and K5 add dq with atomics,
-    # so the two differ only by the order of those sums
+    # the same step on the kernel path again: K3 and K5 add dq in an order
+    # that varies, so the two differ only by the order of those sums
     _, grads_r, _ = step_grads(torch, model, micros, seed)
     r_total, r_worst, r_name = grad_errors(grads_r, grads_k)
     del grads_r
@@ -1172,6 +1188,48 @@ def phase_training(torch, seed: int) -> dict:
             k[0] == "flash_bwd_fused" and k[1] == "global" for k in long_counts):
         problems.append("a 16-frame window must take K4 on its 8 global "
                         f"layers: {long_counts}")
+    # the 16-frame micro-batch's gradients against the plain path, held to
+    # the step's limits, and a K4 fault (dq zeroed on the global calls, which
+    # take K4 at 5 184 keys) caught there. Both from the initial state, where
+    # the limits were set: the steps above leave a state that varies from run
+    # to run with the order of the dq sums, and on it two runs on an H100
+    # read grads 2.5e-3 and 5.4e-3 against the limit of 5e-3
+    model.load_state_dict(init)
+    plain = MotionLatentModel(dataclasses.replace(mcfg, attn_backend="plain"),
+                              seed=None).cuda()
+    plain.load_state_dict(init)
+    plain.image_encoder.requires_grad_(False)
+    model.image_encoder.requires_grad_(False)
+    loss_k, grads_k, norm_k = step_grads(torch, model, [long], seed)
+    loss_p, grads_p, norm_p = step_grads(torch, plain, [long], seed)
+    del plain
+    torch.cuda.empty_cache()
+    total, worst, worst_name = grad_errors(grads_k, grads_p)
+    readings = {"loss": abs(loss_k - loss_p) / abs(loss_p),
+                "grad_norm": abs(norm_k - norm_p) / norm_p,
+                "grads": total, "param_grad": worst}
+    log("  16 frames, kernel vs plain path: relative "
+        + ", ".join(f"{k} {v:.3e} (tol {TRAIN_TOL[k]:.0e})" for k, v in readings.items())
+        + f"; worst parameter {worst_name}")
+    bad = [k for k, v in readings.items() if not v <= TRAIN_TOL[k]]
+    if bad:
+        problems.append(f"16 frames: kernel path disagrees with the plain "
+                        f"path: {bad}")
+    fault = backward_faults(torch, fa, fo)["dq zeroed on the global call"]
+    undo = patch_backward(*fault)
+    try:
+        _, grads_f, norm_f = step_grads(torch, model, [long], seed)
+    finally:
+        undo()
+    f_total, f_worst, f_name = grad_errors(grads_f, grads_p)
+    caught = f_worst > TRAIN_TOL["param_grad"]
+    log(f"  16 frames, injected fault, K4 dq zeroed on the global call: grads "
+        f"{f_total:.3e}, worst parameter {f_worst:.3e} ({f_name}), grad norm "
+        f"{abs(norm_f - norm_p) / norm_p:.3e}: "
+        f"{'caught' if caught else 'MISSED'}")
+    if not caught:
+        problems.append("16 frames: the tolerances miss the K4 dq fault")
+    del grads_k, grads_p, grads_f, long
     # the host loop: host batches copied on a side stream, two steps and a
     # checkpoint, then a resume that finds nothing left to do
     from motion324_tpu_torch.training.trainer import Trainer
@@ -2338,7 +2396,9 @@ def calibrated_u2net(torch, seed: int, video: np.ndarray) -> dict:
 SLICE_CASES = [("K1", "shape_encoder", 1, 64, 16384, 12),
                ("K1", "global", 1, 3888, 3888, 12),
                ("K2", "local", 12, 324, 324, 12),
-               ("K2", "dino", 12, 257, 257, 12)]
+               ("K2", "dino", 12, 257, 257, 12),
+               ("K4", "shape_16k", 1, 64, 16384, 12),
+               ("K4", "global_t16", 1, 5184, 5184, 12)]
 
 
 def slice_bits(torch, seed: int, kernels=("K1", "K2"), with_lse: bool = True,
@@ -2346,8 +2406,10 @@ def slice_bits(torch, seed: int, kernels=("K1", "K2"), with_lse: bool = True,
     """Whether each kernel of ``SLICE_CASES`` gives slice 0 of a B = 4 call
     the same bits as a B = 1 call of that slice, and a call the same bits
     twice. K1 also through the LSE forward (``with_lse``; (B, H, S, 64)
-    slices, the training path's layout). Returns (name, batch equal, max |d|,
-    twice equal) rows; ``strict`` raises on any difference."""
+    slices, the training path's layout). K4 through ``flash_attention_bwd``
+    on (B, H, S, 64) slices, its dq, dk and dv flattened into one tensor
+    (split at 64 x 16 384, unsplit at 5 184^2). Returns (name, batch equal,
+    max |d|, twice equal) rows; ``strict`` raises on any difference."""
     from motion324_tpu_torch.ops import flash_attention as fa
     from motion324_tpu_torch.ops.attention import multi_head_attention
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
@@ -2359,6 +2421,20 @@ def slice_bits(torch, seed: int, kernels=("K1", "K2"), with_lse: bool = True,
                                     device="cuda").to(torch.bfloat16)
         q, k, v = rnd(sq), rnd(sk), rnd(sk)
         runs = [("", lambda x, y, z: multi_head_attention(x, y, z))]
+        if kern == "K4":
+            q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            q = (q * 0.125).to(torch.bfloat16)
+            o, lse = fa.flash_attention_reference(q, k, v, scale=1.0,
+                                                  with_lse=True)
+            do = rnd(sq).transpose(1, 2).contiguous()
+            n_h = h
+
+            def k4(x, y, z, o=o, lse=lse, do=do):
+                b = x.shape[0]
+                return torch.cat([t.reshape(b, -1) for t in fa.flash_attention_bwd(
+                    x, y, z, o[:b].clone(), lse[: b * n_h].clone(),
+                    do[:b].clone())], dim=1)
+            runs = [("", k4)]
         if kern == "K1" and with_lse:
             hf = lambda x: x.transpose(1, 2).contiguous()
             runs.append((" +LSE", lambda x, y, z: torch.cat(

@@ -1,5 +1,6 @@
-// Device code shared by the attention backward kernels: K3 and K4
-// (flash_bwd.cu), K5 (folded_bwd.cu) and the K9 backward (short_bwd.cu).
+// Device code shared by the attention backward kernels: K5 (folded_bwd.cu),
+// the K9 backward (short_bwd.cu), and the f32 checking paths of K3 and K4
+// (flash_bwd.cu, whose bf16 kernels are its own).
 //
 // All of them compute, for q already multiplied by the logit scale,
 //   P = exp(q k^T - lse),  dV = P^T dO,  dP = dO V^T,
@@ -20,14 +21,16 @@
 //    in f32 registers, and loops over 64-query tiles. It works on S^T, so
 //    every product takes its A operand from registers. With kDq, the block
 //    also writes its dS tile to shared memory and adds dS K into an f32 dQ
-//    workspace with atomicAdd (K3, K5); the order of those additions varies
+//    workspace with atomicAdd (K5); the order of those additions varies
 //    from run to run.
 //  - dq kernel: one block of 4 warps per (batch, head, 64-query tile), each
 //    warp holding its 16 rows' q and dO as A fragments and their dQ in f32
-//    registers, looping over 64-key tiles (the first pass of K4 and K9; no
-//    atomics). K9 computes delta in it from O (kDeltaFromO), K4 reads it.
+//    registers, looping over 64-key tiles (the first pass of K9; no
+//    atomics).
+// Both bf16 kernels compute delta from O and dO, tile by tile.
 // f32: scalar FMA on 32 x 32 tiles in shared memory, the same structure;
-// a checking path, not a fast one.
+// a checking path, not a fast one. Its kernels compute delta from O
+// (kDeltaFromO: K5, K9) or read it (K3, K4).
 
 #pragma once
 
@@ -153,7 +156,7 @@ __device__ __forceinline__ void delta_from_o(float* delta_s, const T* do_s,
 }
 
 // ---------------------------------------------------------------- bf16
-template <bool kDq, bool kDeltaFromO>
+template <bool kDq>
 __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dkv_bf16(BwdArgs p) {
   __shared__ uint4 smem_raw[5 * kBwdTile * kRow * sizeof(bf16) / 16];
   __shared__ float lse_s[kBwdTile], delta_s[kBwdTile];
@@ -173,7 +176,6 @@ __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dkv_bf16(BwdArgs p) {
   const bf16* ob = static_cast<const bf16*>(p.o) + b * p.o_bs + h * kD;
   const bf16* dob = static_cast<const bf16*>(p.dout) + b * p.do_bs + h * kD;
   const float* lb = p.lse + b * p.l_bs + h;
-  const float* db = p.delta + b * p.l_bs + h;
   const long long c_out = (long long)p.heads * kD;   // output row stride
 
   load_rows_bf16(k_s, kb, p.k_rs, key0, kBwdTile, p.sk, 1.0f, tid, nthreads);
@@ -195,16 +197,11 @@ __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dkv_bf16(BwdArgs p) {
     __syncthreads();   // the previous tile's q_s / do_s / ds_s are read
     load_rows_bf16(q_s, qb, p.q_rs, q0, kBwdTile, p.sq, 1.0f, tid, nthreads);
     load_rows_bf16(do_s, dob, p.do_rs, q0, kBwdTile, p.sq, 1.0f, tid, nthreads);
-    if (tid < kBwdTile) {
-      const bool ok = q0 + tid < p.sq;
-      lse_s[tid] = ok ? lb[(long long)(q0 + tid) * p.l_rs] : 0.f;
-      if (!kDeltaFromO) delta_s[tid] = ok ? db[(long long)(q0 + tid) * p.l_rs] : 0.f;
-    }
+    if (tid < kBwdTile)
+      lse_s[tid] = q0 + tid < p.sq ? lb[(long long)(q0 + tid) * p.l_rs] : 0.f;
     __syncthreads();
-    if constexpr (kDeltaFromO) {
-      delta_from_o<bf16, kBwdTile, 2, kRow>(delta_s, do_s, ob, p.o_rs, q0, p.sq, tid);
-      __syncthreads();
-    }
+    delta_from_o<bf16, kBwdTile, 2, kRow>(delta_s, do_s, ob, p.o_rs, q0, p.sq, tid);
+    __syncthreads();
 
     // S^T (this warp's 16 keys x 64 queries) and P^T = exp(S^T - lse)
     float s[8][4];
@@ -287,9 +284,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dkv_bf16(BwdArgs p) {
   store_tile(static_cast<bf16*>(p.dv) + o_b, c_out, dv, kw, p.sk, lane);
 }
 
-// The dQ pass of K4 and K9: no atomics, one block per 64-query tile. With
-// kDeltaFromO (K9) delta is computed here from O and dO, else read.
-template <bool kDeltaFromO>
+// The dQ pass of K9: no atomics, one block per 64-query tile; delta is
+// computed here from O and dO.
 __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dq_bf16(BwdArgs p) {
   __shared__ uint4 smem_raw[4 * kBwdTile * kRow * sizeof(bf16) / 16];
   __shared__ float delta_s[kBwdTile];
@@ -306,32 +302,22 @@ __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dq_bf16(BwdArgs p) {
   const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_bs + h * kD;
   const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_bs + h * kD;
   const bf16* dob = static_cast<const bf16*>(p.dout) + b * p.do_bs + h * kD;
+  const bf16* ob = static_cast<const bf16*>(p.o) + b * p.o_bs + h * kD;
   const float* lb = p.lse + b * p.l_bs + h;
-  const float* db = p.delta + b * p.l_bs + h;
   const long long c_out = (long long)p.heads * kD;
 
   load_rows_bf16(q_s, qb, p.q_rs, row0, kBwdTile, p.sq, 1.0f, tid, nthreads);
   load_rows_bf16(do_s, dob, p.do_rs, row0, kBwdTile, p.sq, 1.0f, tid, nthreads);
   __syncthreads();
-  if constexpr (kDeltaFromO) {
-    const bf16* ob = static_cast<const bf16*>(p.o) + b * p.o_bs + h * kD;
-    delta_from_o<bf16, kBwdTile, 2, kRow>(delta_s, do_s, ob, p.o_rs, row0, p.sq, tid);
-    __syncthreads();
-  }
+  delta_from_o<bf16, kBwdTile, 2, kRow>(delta_s, do_s, ob, p.o_rs, row0, p.sq, tid);
+  __syncthreads();
   uint32_t qf[4][4], dof[4][4];
   load_frags(qf, q_s + warp * 16 * kRow, lane);
   load_frags(dof, do_s + warp * 16 * kRow, lane);
   const int r0 = row0 + warp * 16 + g;
   const float l0 = r0 < p.sq ? lb[(long long)r0 * p.l_rs] : 0.f;
   const float l1 = r0 + 8 < p.sq ? lb[(long long)(r0 + 8) * p.l_rs] : 0.f;
-  float d0, d1;
-  if constexpr (kDeltaFromO) {
-    d0 = delta_s[warp * 16 + g];
-    d1 = delta_s[warp * 16 + g + 8];
-  } else {
-    d0 = r0 < p.sq ? db[(long long)r0 * p.l_rs] : 0.f;
-    d1 = r0 + 8 < p.sq ? db[(long long)(r0 + 8) * p.l_rs] : 0.f;
-  }
+  const float d0 = delta_s[warp * 16 + g], d1 = delta_s[warp * 16 + g + 8];
 
   float dq[8][4];
 #pragma unroll
@@ -554,11 +540,11 @@ __global__ void f32_to_bf16(const float* __restrict__ in, bf16* __restrict__ out
 // Launch the dkv kernel (with dQ atomics when kDq) and, for bf16 with kDq,
 // the conversion of the dQ workspace into dq. For f32 with kDq, dq_acc is
 // dq itself. Returns the first CUDA error.
-template <bool kDq, bool kDeltaFromO>
+template <bool kDq>
 inline int launch_dkv(const BwdArgs& a, int batch, int dtype, cudaStream_t s) {
   if (dtype == 1) {
     dim3 grid((a.sk + kBwdTile - 1) / kBwdTile, a.heads, batch);
-    bwd_dkv_bf16<kDq, kDeltaFromO><<<grid, kBwdWarps * 32, 0, s>>>(a);
+    bwd_dkv_bf16<kDq><<<grid, kBwdWarps * 32, 0, s>>>(a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess || !kDq) return static_cast<int>(e);
     const long long n = (long long)batch * a.sq * a.heads * kD;
@@ -567,7 +553,7 @@ inline int launch_dkv(const BwdArgs& a, int batch, int dtype, cudaStream_t s) {
         a.dq_acc, static_cast<bf16*>(a.dq), n);
   } else {
     dim3 grid((a.sk + kST - 1) / kST, a.heads, batch);
-    bwd_dkv_f32<kDq, kDeltaFromO><<<grid, kSThreads, 0, s>>>(a);
+    bwd_dkv_f32<kDq, true><<<grid, kSThreads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -67,12 +67,12 @@ extern "C" int m324_short_bwd(const void* q, const void* k, const void* v,
   a.l_bs = sq; a.l_rs = 1;
   if (dtype == 1) {
     dim3 grid((sq + kBwdTile - 1) / kBwdTile, 1, bh);
-    bwd_dq_bf16<true><<<grid, kBwdWarps * 32, 0, s>>>(a);
+    bwd_dq_bf16<<<grid, kBwdWarps * 32, 0, s>>>(a);
   } else {
     dim3 grid((sq + kST - 1) / kST, 1, bh);
     bwd_dq_f32<true><<<grid, kSThreads, 0, s>>>(a);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_dkv<false, true>(a, bh, dtype, s);
+  return launch_dkv<false>(a, bh, dtype, s);
 }

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` becomes ``build/lib<name>.so``, a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds). All stale
 sources are compiled at once, one ``nvcc`` process per source. A library is
-rebuilt only when its source, the shared header or the flags change (a hash
-kept beside it). Nothing here runs at import time.
+rebuilt only when its source, any header in ``csrc/`` or the flags change (a
+hash kept beside it). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ BUILD_DIR = _PKG / "build"
 KERNELS = ("flash_fwd", "flash_bwd", "folded_fwd", "folded_bwd",
            "flash_single_kv", "masked_flash", "rasterize", "short_fwd",
            "short_bwd")
-_HEADERS = ("attention_common.cuh", "attention_bwd.cuh")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,9 +44,12 @@ def _nvcc() -> str:
 
 
 def _digest(name: str) -> str:
+    # every header under csrc/ enters each library's hash, so that a new or
+    # changed header rebuilds all of them
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for f in (f"{name}.cu",) + _HEADERS:
-        h.update((SRC_DIR / f).read_bytes())
+    for f in [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return h.hexdigest()
 
 

@@ -24,7 +24,10 @@ forward launches the same kernel with the f32 log-sum-exp output
 (``flash_attention.lse_launches``, ``.single_kv_lse_launches``) and saves
 ``(q, k, v, o, lse)``; its backward is :func:`flash_attention_bwd`, which
 launches K3 for KV <= 4096 and K4 beyond (``csrc/flash_bwd.cu``;
-``flash_attention_bwd.fused_launches`` and ``.two_pass_launches``). On a CPU
+``flash_attention_bwd.fused_launches`` and ``.two_pass_launches``). In bf16
+K4's dq pass splits the keys by the same :func:`split_count` as K1 and adds
+the f32 partials in split order (:func:`flash_attention_bwd_split_reference`),
+so K4 too repeats bit for bit at any batch. On a CPU
 tensor every step computes its plain version instead.
 """
 
@@ -40,8 +43,9 @@ from motion324_tpu_torch.ops import _build
 
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_split_reference", "flash_attention_bwd",
-           "flash_attention_bwd_reference", "FlashAttentionFn",
-           "FUSED_BWD_MAX_KV", "SINGLE_KV_MAX", "single_kv_route",
+           "flash_attention_bwd_reference",
+           "flash_attention_bwd_split_reference", "FlashAttentionFn",
+           "bwd_plan", "FUSED_BWD_MAX_KV", "SINGLE_KV_MAX", "single_kv_route",
            "split_count", "split_ranges"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -229,6 +233,30 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, scale: float | None = Non
     return (dqs * sc).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_split_reference(q, k, v, o, lse, do, n_split: int,
+                                        scale: float | None = None):
+    """Plain PyTorch version of K4's split dq pass over ``(..., S, D)``: the
+    dq of each key range of :func:`split_ranges` as an f32 partial (the
+    arithmetic of :func:`flash_attention_bwd_reference` on that range),
+    added in split order, then rounded to q's dtype; dk and dv as
+    :func:`flash_attention_bwd_reference` computes them. Returns
+    ``(dq, dk, dv)``."""
+    sc = scale_in_dtype(q, scale)
+    qs = q * sc
+    l = lse.reshape(q.shape[:-1]).unsqueeze(-1)
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    dq = None
+    for a, b in split_ranges(k.shape[-2], n_split):
+        kk, vv = k[..., a:b, :], v[..., a:b, :]
+        p = torch.exp(torch.matmul(qs.float(), kk.float().transpose(-1, -2)) - l)
+        dp = torch.matmul(do.float(), vv.float().transpose(-1, -2))
+        ds = (p * (dp - delta)).to(q.dtype).float()
+        part = torch.matmul(ds, kk.float())
+        dq = part if dq is None else dq + part
+    _, dk, dv = flash_attention_bwd_reference(q, k, v, o, lse, do, scale=scale)
+    return (dq.to(q.dtype) * sc).to(q.dtype), dk, dv
+
+
 def _load(name: str, argtypes) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
@@ -245,7 +273,9 @@ _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
 _K1_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
                ctypes.c_int, ctypes.c_void_p])
-_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p,
+              ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+             + [ctypes.c_void_p])
 
 
 def _check_shapes(q, k, v):
@@ -430,7 +460,9 @@ def _forward(q, k, v, scale: float, with_lse: bool):
 def flash_attention_bwd(q, k, v, o, lse, do):
     """Gradients ``(dq, dk, dv)`` of attention over ``(B, H, S, 64)`` with
     respect to the pre-scaled q, k and v, from the forward's ``o`` and f32
-    ``lse`` ``(B*H, Sq)``. CUDA: K3 when KV <= ``FUSED_BWD_MAX_KV``, else K4;
+    ``lse`` ``(B*H, Sq)``. CUDA: K3 when KV <= ``FUSED_BWD_MAX_KV``, else K4,
+    whose dq pass splits the keys of a bf16 call by :func:`split_count`
+    (:func:`flash_attention_bwd_split_reference` is its plain version);
     CPU: :func:`flash_attention_bwd_reference`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, scale=1.0)
@@ -438,37 +470,61 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     b, h, sq, _ = q.shape
     sk = k.shape[2]
     do = do.contiguous()
-    if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype:
+    o = o.contiguous()
+    if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype \
+            or o.dtype != q.dtype:
         raise ValueError("dO and O must have q's shape and dtype")
     if lse.shape != (b * h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous f32 {(b * h, sq)}")
-    # delta = rowsum(dO * O) in f32, once, outside the kernels
-    delta = (do.float() * o.float()).sum(dim=-1)
+    if o.data_ptr() % 16 or do.data_ptr() % 16:
+        raise ValueError("dO and O must be 16-byte aligned")
+    dev = q.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return flash_attention_bwd(q, k, v, o, lse, do)
+    fused, n_split, work_floats = bwd_plan(b * h, sq, sk, q.dtype)
+    dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fused = sk <= FUSED_BWD_MAX_KV
-    acc = None
-    if fused and q.dtype == torch.float32:
-        dq = torch.zeros_like(q)
-        acc = dq
-    else:
-        dq = torch.empty_like(q)
-        if fused:
-            acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _load("flash_bwd", _BWD_ARGS).m324_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
-            None if acc is None else acc.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b * h, sq, sk, _DTYPES[q.dtype],
-            int(fused), _stream(q))
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    tickets = (_tickets(dev, stream, -(-sq // K1_Q_TILE) * b * h)
+               if n_split > 1 else None)
+    work = torch.empty(work_floats, dtype=torch.float32, device=dev)
+    rc = _load("flash_bwd", _BWD_ARGS).m324_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), work.data_ptr(), work.numel(),
+        None if tickets is None else tickets.data_ptr(),
+        0 if tickets is None else tickets.numel(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b * h, sq, sk, n_split,
+        _DTYPES[q.dtype], int(fused), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_bwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_bwd launch failed: error {rc} (CUDA error "
+                           f"below 900; 900 no cuTensorMapEncodeTiled; 901 a "
+                           f"bad split; 902 too few tickets; 903 too small a "
+                           f"workspace; 1000 + the driver's tensor-map error)")
     if fused:
         flash_attention_bwd.fused_launches += 1
     else:
         flash_attention_bwd.two_pass_launches += 1
     return dq, dk, dv
+
+
+def bwd_plan(bh: int, sq: int, sk: int,
+             dtype: torch.dtype) -> tuple[bool, int, int]:
+    """``(fused, n_split, workspace floats)`` of a K3 / K4 call over ``bh``
+    (batch, head) slices: K3 for KV <= ``FUSED_BWD_MAX_KV``; a bf16 K4
+    splits its dq pass by :func:`split_count` (a function of (Sq, Sk) only,
+    never of ``bh``). The f32 workspace (``csrc/flash_bwd.cu``): bf16 keeps
+    lse * log2(e) and delta in rows padded to 128, then K3's dq workspace or
+    the split dq pass's partials; f32 keeps delta."""
+    fused = sk <= FUSED_BWD_MAX_KV
+    if dtype != torch.bfloat16:
+        return fused, 1, bh * sq
+    rows = bh * _ceil_to(sq, 128)
+    if fused:
+        return True, 1, rows * (2 + 64)
+    n_split = split_count(sq, sk)
+    return False, n_split, rows * (2 + (64 * n_split if n_split > 1 else 0))
 
 
 flash_attention_bwd.fused_launches = 0

@@ -142,12 +142,20 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 
 # The backward kernels are held to the same shares of max |plain|. dq of K3
-# and K5 is summed with f32 atomics, in an order that changes from run to
-# run: in f32 that moves it by a few ulps of the sum, far inside 2^-14.
+# (bulk reduce-adds in bf16, atomics in f32) and K5 (atomics) is summed in
+# an order that changes from run to run: in f32 that moves it by a few ulps
+# of the sum, far inside 2^-14. The rows cover K3 and K4 at the edges of
+# their 64- and 128-row tiles and K4's split dq pass.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("sq,sk", [(200, 300), (64, 4096), (300, 4200)],
-                         ids=["k3_ragged", "k3_max_kv", "k4_ragged"])
+@pytest.mark.parametrize("sq,sk", [
+    (200, 300), (64, 4096), (300, 4200),
+    (64, 127), (65, 128), (1000, 129), (65, 4096), (1000, 4096),
+    (64, 4097), (65, 4097), (1000, 4097), (64, 16384)],
+    ids=["k3_ragged", "k3_max_kv", "k4_ragged",
+         "k3_64x127", "k3_65x128", "k3_1000x129", "k3_65x4096",
+         "k3_1000x4096", "k4_64x4097", "k4_65x4097", "k4_1000x4097",
+         "k4_split_64x16384"])
 def test_cuda_flash_bwd_matches_plain(cuda, dtype, sq, sk):
     g = torch.Generator(device=cuda).manual_seed(3)
     rnd = lambda *s, f=1.0: (torch.randn(*s, generator=g, device=cuda) * f).to(dtype)
@@ -165,6 +173,33 @@ def test_cuda_flash_bwd_matches_plain(cuda, dtype, sq, sk):
     want = flash_attention_bwd_reference(q, k, v, o, lse, do, scale=1.0)
     for a, b in zip(got, want):
         assert_matches_plain(a, b)
+
+
+# K4 adds no atomics: its dq pass writes f32 partials per key range (split
+# by split_count(Sq, Sk), never by the batch) and the tile's last block adds
+# them in split order, so a call repeats bit for bit and slice 0 of a B = 4
+# call has the bits of the same slice alone, split and unsplit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(64, 16384), (1000, 4200)],
+                         ids=["split", "unsplit"])
+def test_cuda_k4_repeats_bit_for_bit(cuda, sq, sk):
+    from motion324_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(9)
+    rnd = lambda *s, f=1.0: (torch.randn(*s, generator=g, device=cuda) * f).to(
+        torch.bfloat16)
+    q, k, v = rnd(4, 3, sq, 64, f=0.125), rnd(4, 3, sk, 64), rnd(4, 3, sk, 64)
+    o, lse = flash_attention_reference(q, k, v, scale=1.0, with_lse=True)
+    do = rnd(4, 3, sq, 64)
+    four = flash_attention_bwd(q, k, v, o, lse, do)
+    again = flash_attention_bwd(q, k, v, o, lse, do)
+    one = flash_attention_bwd(q[:1].clone(), k[:1].clone(), v[:1].clone(),
+                              o[:1].clone(), lse[:3].clone(), do[:1].clone())
+    torch.cuda.synchronize()
+    assert (fa.split_count(sq, sk) > 1) == (sq == 64)
+    for a, a2, b in zip(four, again, one):
+        assert torch.equal(a, a2)
+        assert torch.equal(a[:1], b)
+    assert not any(t.any().item() for t in fa._TICKETS.values())
 
 
 @pytest.mark.cuda
