@@ -64,7 +64,11 @@ Phases, each of which raises on failure (exit code non-zero):
    their plain versions at the JAX check script's shapes and the motion
    model's sites (local, global, shape encoder, point blocks, decoder; the
    training sites for the LSE forward and the backward), timed beside the
-   bound, the plain version and SDPA.
+   bound, the plain version and SDPA, each row with its split counts (the
+   local forwards also with K1's split rule, the decoder's backward with
+   its dk/dv pass split 1, 2, 4 and 8 ways), the bf16 backwards profiled
+   by kernel; K9's slices bit for bit, B = 1 against B = 4 and twice, at
+   the shape encoder's and the training decoder's shapes.
 9. legacy route (after the main path): MotionPipeline.run with
    attn_backend="short_legacy": exactly 39 K9 launches per clip by call
    site, DINOv2's 24 on K2 and none on K1; five timed clips; agreement with
@@ -72,7 +76,7 @@ Phases, each of which raises on failure (exit code non-zero):
 10. legacy training (after training): train_step on that route, 44 K9
    forwards with the LSE and 44 K9 backwards per step by call site; the
    gradients against the plain path, the step twice, an injected K9
-   backward fault; the step time.
+   backward fault; the step time and a device-only profile of one step.
 11. batch + segmentation: run_batch on four seeded clips of blob.glb and
    one of a 42-vertex mesh with a seeded, calibrated full-width U2Net in
    the graph; each clip of predict_batch against the clip alone, and
@@ -335,13 +339,21 @@ def phase_kernels(torch, seed: int) -> list[dict]:
 def split_note(kname: str, sq: int, sk: int, dname: str) -> str:
     """`` n_split N`` for a K1 row (bf16 calls split by split_count; f32
     never) and a K3 / K4 row (K4's bf16 dq pass splits by the same rule, K3
-    never), else nothing."""
+    never); for a K9 row its own rules' (short_split_count; the backward's
+    dk/dv pass by short_dkv_split_count); else nothing."""
     import torch
     from motion324_tpu_torch.ops.flash_attention import bwd_plan, split_count
+    from motion324_tpu_torch.ops.short_attention import (short_bwd_plan,
+                                                         short_split_count)
     if kname.startswith("flash_fwd"):
         return f" n_split {split_count(sq, sk) if dname == 'bfloat16' else 1}"
     if kname.startswith("flash_bwd"):
         return f" n_split {bwd_plan(1, sq, sk, getattr(torch, dname))[1]}"
+    if kname.startswith("short_fwd"):
+        return f" n_split {short_split_count(sq, sk) if dname == 'bfloat16' else 1}"
+    if kname == "short_bwd":
+        n, m, _, _ = short_bwd_plan(1, sq, sk, getattr(torch, dname))
+        return f" n_split {n} dkv_split {m}"
     return ""
 
 
@@ -593,7 +605,7 @@ def launch_spy(fa, fo, record_raster: list | None = None):
     attention, any other a global layer; K2 over 257 tokens is DINOv2, over
     512 the ShapeVAE, over 256 the UNet's 16^2 level, over 384 its mid
     multiview attention, any other a local layer; K7 by its token count;
-    K8 by its width; K9 (the legacy route, (B*H, S, 64) slices) by
+    K8 by its width; K9 (the legacy route, (B, H, S, 64)) by
     :func:`short_site`. The counts are the wrappers' own counters, read before
     and after each call. With ``record_raster`` a list, each K8 call's
     inputs and output are appended to it. Returns (counts by (kernel,
@@ -653,11 +665,11 @@ def launch_spy(fa, fo, record_raster: list | None = None):
 
 
 def short_site(q, k) -> str:
-    """The motion model's call site of a K9 call on (B*H, S, 64) slices:
+    """The motion model's call site of a K9 call on (B, H, S, 64):
     64 keys are the 64 mesh tokens (64 queries: a point block; else the
     decoder's points); 64 queries over more keys the shape encoder; 324 x
     324 a local layer; any other a global layer."""
-    sq, sk = q.shape[1], k.shape[1]
+    sq, sk = q.shape[-2], k.shape[-2]
     if sk == 64:
         return "pcd" if sq == 64 else "decoder"
     if sq == 64:
@@ -832,12 +844,14 @@ def phase_pipeline(torch, seed: int, repo: str) -> dict:
 
 
 def kernel_group(name: str) -> str:
-    """The kernel group of a CUDA kernel's name in a profile."""
+    """The kernel group of a CUDA kernel's name in a profile. The Hopper
+    attention kernels carry their library's tag as a template argument
+    (k1_flash_fwd, k9_short_fwd, k34_flash_bwd, k9_short_bwd)."""
     n = name.lower()
     if "short_fwd" in n:
         return "K9 short_fwd"
-    if "bwd_dq_bf16" in n or "bwd_dq_f32<true>" in n \
-            or "bwd_dkv_bf16<false>" in n or "bwd_dkv_f32<false, true>" in n:
+    if "short_bwd" in n or "bwd_dq_f32<true>" in n \
+            or "bwd_dkv_f32<false, true>" in n:
         return "K9 short_bwd"
     if "single_kv" in n:
         return "K6 flash_single_kv"
@@ -846,13 +860,13 @@ def kernel_group(name: str) -> str:
     if "folded_fwd" in n:
         return "K2 folded_fwd"
     if "bwd_dkv_hopper" in n:
-        return ("K3 flash_bwd fused" if "true>" in n
+        return ("K3 flash_bwd fused" if ", true," in n
                 else "K4 flash_bwd two-pass")
     if "bwd_prep" in n or "dq_from_acc" in n:
         return "K3/K4 delta, dq cast"
     if "bwd_dkv_f32<true, false>" in n:
         return "K3 flash_bwd fused"
-    if "bwd_dkv_bf16<true>" in n or "bwd_dkv_f32<true, true>" in n:
+    if "bwd_dkv_bf16" in n or "bwd_dkv_f32<true, true>" in n:
         return "K5 folded_bwd"
     if "bwd_dq_" in n or "bwd_dkv_f32<false" in n:
         return "K4 flash_bwd two-pass"
@@ -2007,13 +2021,19 @@ SHORT_CASES = [
 
 def phase_short_kernels(torch, seed: int) -> list[dict]:
     """K9 forward (scale 1/8 folded in), forward with the compact LSE and
-    backward (q pre-scaled) against their plain versions, each output within
-    REL_TOL of its max |plain| (the LSE at the f32 share), a plain version
-    that drops keys outside that limit: the last 64, or 16 of the decoder's
-    and point blocks' 64. Timed beside the bound, the plain version and
-    torch's scaled_dot_product_attention (forward, or backward alone)."""
+    backward (q pre-scaled) over (1, B*H, S, 64) against their plain
+    versions, each output within REL_TOL of its max |plain| (the LSE at the
+    f32 share), a plain version that drops keys outside that limit: the last
+    64, or 16 of the decoder's and point blocks' 64. Timed beside the bound,
+    the plain version and torch's scaled_dot_product_attention (forward, or
+    backward alone). The local rows' bf16 forwards are timed once more with
+    K1's split rule (split_count: 3 key ranges), which K9's own rule
+    leaves unsplit, and the decoder's bf16 backward with its dk/dv pass
+    split 1, 2, 4 and 8 ways in turn."""
     import torch.nn.functional as F
     from motion324_tpu_torch.ops import short_attention as sa
+    from motion324_tpu_torch.ops.flash_attention import (hopper_forward,
+                                                         split_count)
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
 
@@ -2025,20 +2045,21 @@ def phase_short_kernels(torch, seed: int) -> list[dict]:
         for dname in dtypes:
             dtype = getattr(torch, dname)
             cut = 64 if sk > 64 else 16
-            drop = lambda x: x[:, :sk - cut]
+            drop = lambda x: x[:, :, :sk - cut]
             if kname == "short_fwd":
-                q = randn(bh, sq, 64, dtype=dtype)
-                k, v = randn(bh, sk, 64, dtype=dtype), randn(bh, sk, 64, dtype=dtype)
+                q = randn(1, bh, sq, 64, dtype=dtype)
+                k = randn(1, bh, sk, 64, dtype=dtype)
+                v = randn(1, bh, sk, 64, dtype=dtype)
                 run = lambda: sa._forward(q, k, v, 0.125, False)[0]
                 plain_of = lambda kk, vv: (sa.short_attention_reference(
                     q, kk, vv, scale=0.125),)
                 outs, names = (run(),), ("out",)
                 # SDPA's fused kernels take 4-D inputs: the slices as heads
-                lib = lambda: F.scaled_dot_product_attention(
-                    q[None], k[None], v[None], scale=0.125)
+                lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)
             else:
-                q = randn(bh, sq, 64, dtype=dtype, scale=0.125)
-                k, v = randn(bh, sk, 64, dtype=dtype), randn(bh, sk, 64, dtype=dtype)
+                q = randn(1, bh, sq, 64, dtype=dtype, scale=0.125)
+                k = randn(1, bh, sk, 64, dtype=dtype)
+                v = randn(1, bh, sk, 64, dtype=dtype)
                 o, lse = sa.short_attention_reference(q, k, v, scale=1.0,
                                                       with_lse=True)
                 if kname == "short_fwd_lse":
@@ -2046,23 +2067,23 @@ def phase_short_kernels(torch, seed: int) -> list[dict]:
                     plain_of = lambda kk, vv: sa.short_attention_reference(
                         q, kk, vv, scale=1.0, with_lse=True)
                     names = ("out", "lse")
-                    lib = lambda: F.scaled_dot_product_attention(
-                        q[None], k[None], v[None], scale=1.0)
+                    lib = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                 scale=1.0)
                 else:
-                    do = randn(bh, sq, 64, dtype=dtype)
+                    do = randn(1, bh, sq, 64, dtype=dtype)
                     run = lambda: sa.short_attention_bwd(q, k, v, o, lse, do)
 
                     def plain_of(kk, vv):
                         dq, dk, dv = sa.short_attention_bwd_reference(
                             q, kk, vv, o, lse, do)
                         pad = lambda x: torch.cat(
-                            [x, torch.zeros_like(x[:, :sk - x.shape[1]])], 1)
+                            [x, torch.zeros_like(x[:, :, :sk - x.shape[2]])], 2)
                         return dq, pad(dk), pad(dv)
                     names = ("dq", "dk", "dv")
-                    qg, kg, vg = (t[None].detach().clone().requires_grad_()
+                    qg, kg, vg = (t.detach().clone().requires_grad_()
                                   for t in (q, k, v))
                     ref = F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
-                    lib = lambda: torch.autograd.grad(ref, (qg, kg, vg), do[None],
+                    lib = lambda: torch.autograd.grad(ref, (qg, kg, vg), do,
                                                       retain_graph=True)
                 outs = run()
             wants = plain_of(k, v)
@@ -2089,20 +2110,54 @@ def phase_short_kernels(torch, seed: int) -> list[dict]:
             bound_ms, bound_by = bound(bh, 1, sq, sk, dname, q.element_size(),
                                        backward=kname == "short_bwd",
                                        lse=kname != "short_fwd")
+            other = ""
+            if case == "local" and kname != "short_bwd" and dname == "bfloat16":
+                scale = 0.125 if kname == "short_fwd" else 1.0
+                k1_rule = time_ms(torch, lambda: hopper_forward(
+                    "short_fwd", sa.short_attention, q, k, v, scale,
+                    kname == "short_fwd_lse", split_count), **reps)
+                other = (f"; with K1's rule (n_split {split_count(sq, sk)}) "
+                         f"{k1_rule:.4f} ms")
+            if kname == "short_bwd" and dname == "bfloat16" and case == "decoder":
+                other = "; " + dkv_split_times(torch, sa, run, (1, 2, 4, 8))
             detail = "; ".join(
                 f"{n} max|d| {e:.2e} / max|plain| {t:.3g} (tol {tl:.2e}, "
                 f"{cut} keys dropped {m:.2e})" for n, (e, t, tl, m) in errs.items())
-            log(f"  {kname:13s} {case:13s} {dname:8s} BH{bh} Sq{sq} Sk{sk}: "
-                f"{detail}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
-                f"{lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})")
+            log(f"  {kname:13s} {case:13s} {dname:8s} BH{bh} Sq{sq} Sk{sk}"
+                f"{split_note(kname, sq, sk, dname)}: {detail}; kernel "
+                f"{ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
+                f"bound {bound_ms:.4f} ms ({bound_by}){other}")
             rows.append(dict(kernel=kname, case=case, dtype=dname, main=main,
                              max_abs_err=max(e for e, *_ in errs.values()),
                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
+            if kname == "short_bwd" and dname == "bfloat16" and main:
+                profile_step(torch, run, what=f"{kname}/{case}", host_ops=False)
             q = k = v = o = lse = do = ref = qg = kg = vg = None
             run = plain_of = lib = None
             torch.cuda.empty_cache()
+    # K9's splits depend on (Sq, Sk) alone and add no atomics: its slices do
+    # not depend on the batch, and a call repeats
+    slice_bits(torch, seed, kernels=("K9",), strict=True)
     return rows
+
+
+def dkv_split_times(torch, sa, run, counts, rounds: int = 4) -> str:
+    """``run`` (a K9 backward) timed with its dk/dv pass split each of
+    ``counts`` ways in place of K9's rule, the counts taken in turn (their
+    order rotated each round): the median ms of each count."""
+    times: dict = {n: [] for n in counts}
+    rule = sa.short_dkv_split_count
+    try:
+        for r in range(rounds):
+            for n in counts[r % len(counts):] + counts[:r % len(counts)]:
+                sa.short_dkv_split_count = lambda sq_, sk_, n=n: n
+                times[n].append(time_ms(torch, run, n=10, reps=3))
+    finally:
+        sa.short_dkv_split_count = rule
+    return "dk/dv split " + ", ".join(
+        f"{n}: {np.median(t):.4f} ms ({min(t):.4f}-{max(t):.4f})"
+        for n, t in times.items())
 
 
 # K9 launches per clip on the legacy route by call site: the shape encoder
@@ -2237,7 +2292,8 @@ def phase_legacy_training(torch, seed: int) -> dict:
     params, accumulation 2: exact launches per step by call site, one
     step's gradients against the plain path within TRAIN_TOL, the step
     twice (no atomics: the same gradients), an injected K9 backward fault
-    past param_grad, the median step time."""
+    past param_grad, the median step time and a device-only profile of one
+    step by kernel group."""
     from motion324_tpu_torch.config import ModelConfig, TrainConfig
     from motion324_tpu_torch.models.motion_model import MotionLatentModel
     from motion324_tpu_torch.ops import flash_attention as fa
@@ -2283,6 +2339,9 @@ def phase_legacy_training(torch, seed: int) -> dict:
     log(f"  legacy step: median {np.median(times):.4f} s over 3 "
         f"{[round(t, 4) for t in times]}, {4 / np.median(times):.3f} samples/s, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    # K9's share of a legacy step's device time, by kernel group
+    profile_step(torch, lambda: train_step(state, micros, tcfg),
+                 what="legacy step", host_ops=False)
     del state
     model.load_state_dict(init)
     model.image_encoder.requires_grad_(False)
@@ -2398,7 +2457,10 @@ SLICE_CASES = [("K1", "shape_encoder", 1, 64, 16384, 12),
                ("K2", "local", 12, 324, 324, 12),
                ("K2", "dino", 12, 257, 257, 12),
                ("K4", "shape_16k", 1, 64, 16384, 12),
-               ("K4", "global_t16", 1, 5184, 5184, 12)]
+               ("K4", "global_t16", 1, 5184, 5184, 12),
+               ("K9", "shape_encoder", 1, 64, 16384, 12),
+               ("K9", "shape_encoder_train", 1, 64, 4096, 12),
+               ("K9", "decoder_train", 1, 4096, 64, 12)]
 
 
 def slice_bits(torch, seed: int, kernels=("K1", "K2"), with_lse: bool = True,
@@ -2408,9 +2470,14 @@ def slice_bits(torch, seed: int, kernels=("K1", "K2"), with_lse: bool = True,
     twice. K1 also through the LSE forward (``with_lse``; (B, H, S, 64)
     slices, the training path's layout). K4 through ``flash_attention_bwd``
     on (B, H, S, 64) slices, its dq, dk and dv flattened into one tensor
-    (split at 64 x 16 384, unsplit at 5 184^2). Returns (name, batch equal,
-    max |d|, twice equal) rows; ``strict`` raises on any difference."""
+    (split at 64 x 16 384, unsplit at 5 184^2). K9 through the legacy route
+    (its forward) and through its LSE forward and backward on the
+    dispatcher's (B, H, S, 64) views, out, lse, dq, dk and dv flattened per
+    batch (split forward and dq pass at 64 x 16 384 and 64 x 4 096, split
+    dk/dv pass at 4 096 x 64). Returns (name, batch equal, max |d|, twice
+    equal) rows; ``strict`` raises on any difference."""
     from motion324_tpu_torch.ops import flash_attention as fa
+    from motion324_tpu_torch.ops import short_attention as sa
     from motion324_tpu_torch.ops.attention import multi_head_attention
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     rows = []
@@ -2435,6 +2502,20 @@ def slice_bits(torch, seed: int, kernels=("K1", "K2"), with_lse: bool = True,
                     x, y, z, o[:b].clone(), lse[: b * n_h].clone(),
                     do[:b].clone())], dim=1)
             runs = [("", k4)]
+        if kern == "K9":
+            do = rnd(sq)
+
+            def k9(x, y, z, do=do):
+                b = x.shape[0]
+                qs, kh, vh = ((x * 0.125).to(torch.bfloat16).transpose(1, 2),
+                              y.transpose(1, 2), z.transpose(1, 2))
+                out, lse = sa._forward(qs, kh, vh, 1.0, with_lse=True)
+                grads = sa.short_attention_bwd(qs, kh, vh, out, lse,
+                                               do[:b].transpose(1, 2))
+                return torch.cat([t.reshape(b, -1) for t in (out, lse, *grads)],
+                                 dim=1)
+            runs = [("", lambda x, y, z: multi_head_attention(
+                x, y, z, backend="short_legacy")), (" +LSE, bwd", k9)]
         if kern == "K1" and with_lse:
             hf = lambda x: x.transpose(1, 2).contiguous()
             runs.append((" +LSE", lambda x, y, z: torch.cat(
@@ -2445,7 +2526,7 @@ def slice_bits(torch, seed: int, kernels=("K1", "K2"), with_lse: bool = True,
             again = run(q, k, v)
             one = run(q[:b1].clone(), k[:b1].clone(), v[:b1].clone())
             torch.cuda.synchronize()
-            if tag:
+            if tag == " +LSE":
                 # slice 0's out and lse inside the flattened (out, lse)
                 n_out = 4 * b1 * h * sq * 64
                 part = torch.cat([four[: n_out // 4],

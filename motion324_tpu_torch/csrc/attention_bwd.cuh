@@ -1,6 +1,7 @@
-// Device code shared by the attention backward kernels: K5 (folded_bwd.cu),
-// the K9 backward (short_bwd.cu), and the f32 checking paths of K3 and K4
-// (flash_bwd.cu, whose bf16 kernels are its own).
+// Device code of the attention backward kernels: K5 (folded_bwd.cu), and
+// the f32 checking paths of K3 / K4 (flash_bwd.cu) and the K9 backward
+// (short_bwd.cu), whose bf16 kernels are the Hopper passes of
+// hopper_bwd.cuh.
 //
 // All of them compute, for q already multiplied by the logit scale,
 //   P = exp(q k^T - lse),  dV = P^T dO,  dP = dO V^T,
@@ -15,19 +16,14 @@
 // (B*H, S, 64) is heads = 1. lse and delta are f32 (batch, S, heads) with
 // their own strides. Outputs are contiguous (batch, S, heads * 64).
 //
-// bf16: mma.sync m16n8k16 with f32 accumulation, as in the forward.
-//  - dkv kernel: one block of 4 warps per (batch, head, 64-key tile); each
-//    warp keeps its 16 keys' K and V as A fragments and their dK / dV sums
-//    in f32 registers, and loops over 64-query tiles. It works on S^T, so
-//    every product takes its A operand from registers. With kDq, the block
-//    also writes its dS tile to shared memory and adds dS K into an f32 dQ
-//    workspace with atomicAdd (K5); the order of those additions varies
-//    from run to run.
-//  - dq kernel: one block of 4 warps per (batch, head, 64-query tile), each
-//    warp holding its 16 rows' q and dO as A fragments and their dQ in f32
-//    registers, looping over 64-key tiles (the first pass of K9; no
-//    atomics).
-// Both bf16 kernels compute delta from O and dO, tile by tile.
+// bf16 (K5): mma.sync m16n8k16 with f32 accumulation, as in the forward.
+// One block of 4 warps per (batch, head, 64-key tile); each warp keeps its
+// 16 keys' K and V as A fragments and their dK / dV sums in f32 registers,
+// and loops over 64-query tiles. It works on S^T, so every product takes
+// its A operand from registers. The block also writes its dS tile to shared
+// memory and adds dS K into an f32 dQ workspace with atomicAdd; the order
+// of those additions varies from run to run. Delta is computed from O and
+// dO, tile by tile.
 // f32: scalar FMA on 32 x 32 tiles in shared memory, the same structure;
 // a checking path, not a fast one. Its kernels compute delta from O
 // (kDeltaFromO: K5, K9) or read it (K3, K4).
@@ -46,8 +42,8 @@ struct BwdArgs {
   const void* dout;
   const float* lse;
   const float* delta;  // unused when delta is computed in the kernel
-  float* dq_acc;       // f32 dQ workspace summed into with atomics (kDq)
-  void* dq;            // dQ written directly (dq kernel)
+  float* dq_acc;       // f32 dQ workspace summed into with atomics (K5)
+  void* dq;            // dQ written directly (f32 dq kernel)
   void* dk;
   void* dv;
   int sq, sk, heads;
@@ -56,7 +52,7 @@ struct BwdArgs {
 };
 
 constexpr int kBwdWarps = 4;
-constexpr int kBwdTile = 64;   // keys per dkv block, queries per dq block
+constexpr int kBwdTile = 64;   // keys per dkv block
 
 __device__ __forceinline__ void load_frags(uint32_t f[4][4], const bf16* s,
                                            int lane) {
@@ -156,7 +152,6 @@ __device__ __forceinline__ void delta_from_o(float* delta_s, const T* do_s,
 }
 
 // ---------------------------------------------------------------- bf16
-template <bool kDq>
 __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dkv_bf16(BwdArgs p) {
   __shared__ uint4 smem_raw[5 * kBwdTile * kRow * sizeof(bf16) / 16];
   __shared__ float lse_s[kBwdTile], delta_s[kBwdTile];
@@ -235,7 +230,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dkv_bf16(BwdArgs p) {
     }
     mma_cx(dk, s, q_s, lane);               // dK += dS^T q
 
-    if constexpr (kDq) {
+    {   // dQ += dS K, into the f32 workspace with atomics
       const int kl = warp * 16 + g;         // key within the block's tile
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -282,71 +277,6 @@ __global__ void __launch_bounds__(kBwdWarps * 32) bwd_dkv_bf16(BwdArgs p) {
   const long long o_b = b * (long long)p.sk * c_out + h * kD;
   store_tile(static_cast<bf16*>(p.dk) + o_b, c_out, dk, kw, p.sk, lane);
   store_tile(static_cast<bf16*>(p.dv) + o_b, c_out, dv, kw, p.sk, lane);
-}
-
-// The dQ pass of K9: no atomics, one block per 64-query tile; delta is
-// computed here from O and dO.
-__global__ void __launch_bounds__(kBwdWarps * 32) bwd_dq_bf16(BwdArgs p) {
-  __shared__ uint4 smem_raw[4 * kBwdTile * kRow * sizeof(bf16) / 16];
-  __shared__ float delta_s[kBwdTile];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + kBwdTile * kRow;
-  bf16* k_s = do_s + kBwdTile * kRow;
-  bf16* v_s = k_s + kBwdTile * kRow;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * kBwdTile, h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int nthreads = kBwdWarps * 32;
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_bs + h * kD;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_bs + h * kD;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_bs + h * kD;
-  const bf16* dob = static_cast<const bf16*>(p.dout) + b * p.do_bs + h * kD;
-  const bf16* ob = static_cast<const bf16*>(p.o) + b * p.o_bs + h * kD;
-  const float* lb = p.lse + b * p.l_bs + h;
-  const long long c_out = (long long)p.heads * kD;
-
-  load_rows_bf16(q_s, qb, p.q_rs, row0, kBwdTile, p.sq, 1.0f, tid, nthreads);
-  load_rows_bf16(do_s, dob, p.do_rs, row0, kBwdTile, p.sq, 1.0f, tid, nthreads);
-  __syncthreads();
-  delta_from_o<bf16, kBwdTile, 2, kRow>(delta_s, do_s, ob, p.o_rs, row0, p.sq, tid);
-  __syncthreads();
-  uint32_t qf[4][4], dof[4][4];
-  load_frags(qf, q_s + warp * 16 * kRow, lane);
-  load_frags(dof, do_s + warp * 16 * kRow, lane);
-  const int r0 = row0 + warp * 16 + g;
-  const float l0 = r0 < p.sq ? lb[(long long)r0 * p.l_rs] : 0.f;
-  const float l1 = r0 + 8 < p.sq ? lb[(long long)(r0 + 8) * p.l_rs] : 0.f;
-  const float d0 = delta_s[warp * 16 + g], d1 = delta_s[warp * 16 + g + 8];
-
-  float dq[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-  for (int kv0 = 0; kv0 < p.sk; kv0 += kBwdTile) {
-    __syncthreads();
-    load_rows_bf16(k_s, kb, p.k_rs, kv0, kBwdTile, p.sk, 1.0f, tid, nthreads);
-    load_rows_bf16(v_s, vb, p.v_rs, kv0, kBwdTile, p.sk, 1.0f, tid, nthreads);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt(s, qf, k_s, lane);               // S = q K^T
-    mma_abt(dp, dof, v_s, lane);             // dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int key = kv0 + 8 * j + 2 * t;
-      const bool ok0 = key < p.sk, ok1 = key + 1 < p.sk;
-      s[j][0] = ok0 ? expf(s[j][0] - l0) * (dp[j][0] - d0) : 0.f;
-      s[j][1] = ok1 ? expf(s[j][1] - l0) * (dp[j][1] - d0) : 0.f;
-      s[j][2] = ok0 ? expf(s[j][2] - l1) * (dp[j][2] - d1) : 0.f;
-      s[j][3] = ok1 ? expf(s[j][3] - l1) * (dp[j][3] - d1) : 0.f;
-    }
-    mma_cx(dq, s, k_s, lane);                // dQ += dS K
-  }
-  store_tile(static_cast<bf16*>(p.dq) + b * (long long)p.sq * c_out + h * kD,
-             c_out, dq, row0 + warp * 16, p.sq, lane);
 }
 
 // ---------------------------------------------------------------- f32
@@ -537,23 +467,22 @@ __global__ void f32_to_bf16(const float* __restrict__ in, bf16* __restrict__ out
     out[i] = __float2bfloat16_rn(in[i]);
 }
 
-// Launch the dkv kernel (with dQ atomics when kDq) and, for bf16 with kDq,
-// the conversion of the dQ workspace into dq. For f32 with kDq, dq_acc is
-// dq itself. Returns the first CUDA error.
-template <bool kDq>
+// Launch K5's dkv kernel with its dQ atomics and, for bf16, the conversion
+// of the dQ workspace into dq; for f32, dq_acc is dq itself. Returns the
+// first CUDA error.
 inline int launch_dkv(const BwdArgs& a, int batch, int dtype, cudaStream_t s) {
   if (dtype == 1) {
     dim3 grid((a.sk + kBwdTile - 1) / kBwdTile, a.heads, batch);
-    bwd_dkv_bf16<kDq><<<grid, kBwdWarps * 32, 0, s>>>(a);
+    bwd_dkv_bf16<<<grid, kBwdWarps * 32, 0, s>>>(a);
     cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess || !kDq) return static_cast<int>(e);
+    if (e != cudaSuccess) return static_cast<int>(e);
     const long long n = (long long)batch * a.sq * a.heads * kD;
     const long long blocks = (n + 255) / 256;
     f32_to_bf16<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
         a.dq_acc, static_cast<bf16*>(a.dq), n);
   } else {
     dim3 grid((a.sk + kST - 1) / kST, a.heads, batch);
-    bwd_dkv_f32<kDq, true><<<grid, kSThreads, 0, s>>>(a);
+    bwd_dkv_f32<true, true><<<grid, kSThreads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

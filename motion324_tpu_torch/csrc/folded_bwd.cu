@@ -52,5 +52,5 @@ extern "C" int m324_folded_bwd(const void* q, const void* k, const void* v,
   a.v_bs = v_bs; a.v_rs = v_rs; a.o_bs = o_bs; a.o_rs = o_rs;
   a.do_bs = do_bs; a.do_rs = do_rs;
   a.l_bs = (long long)sq * heads; a.l_rs = heads;
-  return launch_dkv<true>(a, batch, dtype, static_cast<cudaStream_t>(stream));
+  return launch_dkv(a, batch, dtype, static_cast<cudaStream_t>(stream));
 }

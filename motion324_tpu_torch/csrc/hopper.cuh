@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by K1 (flash_fwd.cu) and K3 / K4
-// (flash_bwd.cu): mbarriers, TMA loads and bulk copies, the bulk f32
+// Hopper (sm_90a) building blocks of the attention kernels of
+// hopper_fwd.cuh (K1, the K9 forward) and hopper_bwd.cuh (K3 / K4, the K9
+// backward): mbarriers, TMA loads and bulk copies, the bulk f32
 // reduce-add, wgmma on bf16 tiles of 64-element (128-byte) rows in the
 // 128-byte swizzle, and the host-side tensor maps (cuTensorMapEncodeTiled
 // through dlopen, so the libraries need no -lcuda).

@@ -21,8 +21,8 @@ kernel's wrapper computes its plain version.
 ``backend`` forces a route, with the JAX package's names: ``"xla"`` the
 plain path (``"plain"`` is the same, the name the port's comparisons use);
 ``"flash"`` the flash route (K6 or K1 as above); ``"short"`` K2;
-``"short_legacy"`` K9, the short-attention kernel over ``(B*H, S, 64)``
-slices (:mod:`motion324_tpu_torch.ops.short_attention`). The JAX package's
+``"short_legacy"`` K9, the short-attention kernel over ``(B, H, S, 64)``
+(:mod:`motion324_tpu_torch.ops.short_attention`). The JAX package's
 interpreter modes (``"interpret"``, ``"*_interpret"``) are for its CPU tests
 and are refused here, as is any other name.
 """
@@ -95,8 +95,8 @@ def multi_head_attention(q, k, v, *, scale: float | None = None,
         return out.reshape(b, sq, h, d)
 
     if route == "short_legacy":
-        # K9 reads (B*H, S, 64) slices through their strides: the transposed
-        # views go in as they are where B*H flattens, else as a copy
+        # K9 reads the (B, H, S, D) views through their strides and writes
+        # its output heads-last, as K1 does: neither way needs a copy
         out = short_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), scale=scale)
         return out.transpose(1, 2)

@@ -301,9 +301,9 @@ def _check(q, k, v) -> list[int]:
     with unit stride in the head dim, 16-byte-aligned (batch, head, row)
     strides and a 16-byte-aligned base: contiguous tensors and the
     dispatcher's transposed ``(B, S, H, 64)`` views alike. Returns the
-    (batch, head, row) strides of q, k and v in elements; a dimension of
-    size 1 gets one that a tensor map takes (it is never stepped). Each call
-    of K1 pays for this on the host, so it reads each attribute once."""
+    (batch, head, row) strides of q, k and v in elements
+    (:func:`map_strides`). Each call of K1 pays for this on the host, so it
+    reads each attribute once."""
     qs, ks, vs = q.shape, k.shape, v.shape
     if (len(qs) != 4 or len(ks) != 4 or ks != vs or qs[:2] != ks[:2]
             or qs[3] != 64 or ks[3] != 64 or qs[2] == 0 or ks[2] == 0
@@ -311,23 +311,29 @@ def _check(q, k, v) -> list[int]:
             or v.dtype != q.dtype or k.device != q.device
             or v.device != q.device):
         _check_shapes(q, k, v)    # raises, saying what is wrong
-    per16 = 16 // q.element_size()
-    strides = []
-    for name, t, shape in (("q", q, qs), ("k", k, ks), ("v", v, vs)):
-        st = t.stride()
-        if st[3] != 1:
-            raise ValueError(f"the CUDA kernel takes {name} with unit stride "
-                             f"in the head dim, got strides {st}")
-        if t.data_ptr() % 16 or (st[0] % per16 and shape[0] > 1) \
-                or (st[1] % per16 and shape[1] > 1) \
-                or (st[2] % per16 and shape[2] > 1):
-            raise ValueError(f"{name}'s base or rows are not 16-byte aligned "
-                             f"(strides {st})")
-        pad = shape[2] * 64
-        strides += [st[0] if shape[0] > 1 else pad,
-                    st[1] if shape[1] > 1 else pad,
-                    st[2] if shape[2] > 1 else pad]
-    return strides
+    return (map_strides("q", q) + map_strides("k", k)
+            + map_strides("v", v))
+
+
+def map_strides(name: str, t: torch.Tensor) -> list[int]:
+    """The (batch, head, row) strides in elements of a (B, H, S, 64) tensor
+    that a Hopper kernel reads through a tensor map: unit stride in the head
+    dim, 16-byte-aligned strides and base, else ValueError. A dimension of
+    size 1 gets a stride that a tensor map takes (it is never stepped)."""
+    st = t.stride()
+    shape = t.shape
+    if st[3] != 1:
+        raise ValueError(f"the CUDA kernel takes {name} with unit stride "
+                         f"in the head dim, got strides {st}")
+    per16 = 16 // t.element_size()
+    if t.data_ptr() % 16 or (st[0] % per16 and shape[0] > 1) \
+            or (st[1] % per16 and shape[1] > 1) \
+            or (st[2] % per16 and shape[2] > 1):
+        raise ValueError(f"{name}'s base or rows are not 16-byte aligned "
+                         f"(strides {st})")
+    pad = shape[2] * 64
+    return [st[0] if shape[0] > 1 else pad, st[1] if shape[1] > 1 else pad,
+            st[2] if shape[2] > 1 else pad]
 
 
 def _check_contiguous(q, k, v):
@@ -348,15 +354,29 @@ def _stream(t: torch.Tensor) -> int:
 def _forward_k1(q, k, v, scale: float, with_lse: bool):
     """K1 on CUDA tensors, whatever the KV length: ``(out, lse or None)``,
     out (B, H, Sq, 64) laid out heads-last where q is, else contiguous. bf16
-    calls split their keys by :func:`split_count`. The host work here is
-    part of each call's time at the short rows, so it is kept lean."""
+    calls split their keys by :func:`split_count`."""
+    return hopper_forward("flash_fwd", flash_attention, q, k, v, scale,
+                          with_lse, split_count)
+
+
+def hopper_forward(name: str, counter, q, k, v, scale: float, with_lse: bool,
+                   split):
+    """Launch the Hopper forward kernel of library ``name`` (``"flash_fwd"``:
+    K1; ``"short_fwd"``: the K9 forward, the same kernel under K9's name) on
+    CUDA tensors: ``(out, lse or None)``, out (B, H, Sq, 64) laid out
+    heads-last where q is, else contiguous; a bf16 call cuts its keys into
+    ``split(Sq, Sk)`` ranges (f32: 1). Adds one to ``counter.launches`` or
+    ``counter.lse_launches``. The host work here is part of each call's time
+    at the short rows, so it is kept lean."""
     strides = _check(q, k, v)
     dev = q.device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return _forward_k1(q, k, v, scale, with_lse)
+            return hopper_forward(name, counter, q, k, v, scale, with_lse,
+                                  split)
     b, h, sq, _ = q.shape
     sk = k.shape[2]
+    n_split = split(sq, sk) if q.dtype == torch.bfloat16 else 1
     if q.stride(1) < q.stride(2):
         # a (B, S, H, 64) view: the output keeps that layout, so that the
         # dispatcher's transpose back is contiguous
@@ -365,27 +385,29 @@ def _forward_k1(q, k, v, scale: float, with_lse: bool):
     else:
         out = torch.empty((b, h, sq, 64), dtype=q.dtype, device=dev)
         strides += [h * sq * 64, sq * 64, 64]
-    n_split = split_count(sq, sk) if q.dtype == torch.bfloat16 else 1
     # one f32 buffer (one allocation): the LSE, then for a split call the
-    # partial LSEs and outputs; the LSE is a view, so the workspace lives
-    # as long as it does
+    # partial LSEs and outputs, each part at a 16-byte boundary (the kernel
+    # reads the partial outputs as float4); the LSE is a view, so the
+    # workspace lives as long as it does
     rows = b * h * sq
-    n_lse = rows if with_lse else 0
+    n_lse = -(-rows // 4) * 4 if with_lse else 0
     n_part = n_split * rows if n_split > 1 else 0
-    buf = (torch.empty(n_lse + 65 * n_part, dtype=torch.float32, device=dev)
-           if n_lse + n_part else None)
+    n_plse = -(-n_part // 4) * 4
+    buf = (torch.empty(n_lse + n_plse + 64 * n_part, dtype=torch.float32,
+                       device=dev) if n_lse + n_part else None)
     base = 0 if buf is None else buf.data_ptr()
     lse = buf[:rows].view(b * h, sq) if with_lse else None
     part_lse = base + 4 * n_lse if n_part else None
-    part_o = base + 4 * (n_lse + n_part) if n_part else None
+    part_o = base + 4 * (n_lse + n_plse) if n_part else None
     # the current stream's handle without a Stream object (5 us less host
     # time per call on the H100's machine)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     # one ticket per (query tile, slice); a tile is 128 rows, or all of
-    # Sq <= 64
+    # Sq <= 64 (a call over Sk <= 64 keys, whose tiles are 64 rows, is
+    # never split)
     tickets = (_tickets(dev, stream, -(-sq // K1_Q_TILE) * b * h)
                if n_split > 1 else None)
-    rc = _load("flash_fwd", _K1_ARGS).m324_flash_fwd(
+    rc = getattr(_load(name, _K1_ARGS), "m324_" + name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         base if with_lse else None, part_o, part_lse,
         None if tickets is None else tickets.data_ptr(),
@@ -393,14 +415,14 @@ def _forward_k1(q, k, v, scale: float, with_lse: bool):
         (ctypes.c_longlong * 12)(*strides), n_split, scale, _DTYPES[q.dtype],
         stream)
     if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: error {rc} (CUDA error "
+        raise RuntimeError(f"{name} launch failed: error {rc} (CUDA error "
                            f"below 900; 900 no cuTensorMapEncodeTiled; 901 an "
                            f"empty split; 902 too few tickets; 1000 + the "
                            f"driver's tensor-map error)")
     if with_lse:
-        flash_attention.lse_launches += 1
+        counter.lse_launches += 1
     else:
-        flash_attention.launches += 1
+        counter.launches += 1
     return out, lse
 
 
@@ -411,7 +433,8 @@ _TICKETS: dict = {}
 
 
 def _tickets(dev, stream, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed tickets for K1 calls on ``stream``."""
+    """At least ``n`` zeroed tickets for split calls on ``stream`` (K1,
+    K4, K9)."""
     buf = _TICKETS.get((dev.index, stream))
     if buf is None or buf.numel() < n:
         buf = _TICKETS[(dev.index, stream)] = torch.zeros(

@@ -59,7 +59,7 @@ def assert_matches_plain(out, want, rel=None):
 
 def _bhsd(g, cuda, dtype, b, h, s, strided, scale=1.0):
     """(B, H, S, 64) randn: contiguous, or the transposed view of a
-    (B, S, H, 64) tensor, as the dispatcher hands K1 its inputs."""
+    (B, S, H, 64) tensor, as the dispatcher hands K1 and K9 their inputs."""
     if strided:
         x = torch.randn(b, s, h, 64, generator=g, device=cuda) * scale
         return x.to(dtype).transpose(1, 2)
@@ -396,8 +396,7 @@ def test_cuda_rasterize_matches_plain_bit_for_bit(cuda, w, h, n_faces):
 # K9 forward: the same softmax as its plain version with P rounded against
 # a running max (as K1 and K2), held to the same shares of max |plain|. The
 # inputs are (B, S, H, 64) projections seen as (B, H, S, 64), as the legacy
-# route hands them over: B = 1 flattens into slices through the strides,
-# B = 3 is copied.
+# route hands them over; the kernel reads them through their strides.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,sq,sk", [(3, 37, 200), (1, 324, 324),
@@ -414,22 +413,26 @@ def test_cuda_short_matches_plain(cuda, dtype, b, sq, sk):
     assert_matches_plain(out, sa.short_attention_reference(q, k, v, scale=0.31))
 
 
-# K9 backward: two passes with no atomics, so it is repeatable bit for bit;
-# the forward with the compact LSE beside it.
+# K9 backward: two passes with no atomics on the data, so it is repeatable
+# bit for bit; the forward with the compact LSE beside it. 64 x 4 096 splits
+# the forward's and the dq pass's keys 16 ways, 4 100 x 64 the dk/dv pass's
+# query tiles 2 ways; contiguous and (B, S, H, 64)-strided inputs.
 @pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True], ids=["bhsd", "bshd"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("sq,sk", [(324, 324), (64, 1500), (162, 64)])
-def test_cuda_short_lse_and_bwd_match_plain(cuda, dtype, sq, sk):
+@pytest.mark.parametrize("sq,sk", [(324, 324), (64, 1500), (162, 64),
+                                   (64, 4096), (4100, 64)])
+def test_cuda_short_lse_and_bwd_match_plain(cuda, dtype, sq, sk, strided):
     g = torch.Generator(device=cuda).manual_seed(9)
-    rnd = lambda *s, f=1.0: (torch.randn(*s, generator=g, device=cuda) * f).to(dtype)
-    q, k, v = rnd(6, sq, 64, f=0.125), rnd(6, sk, 64), rnd(6, sk, 64)
+    q = _bhsd(g, cuda, dtype, 2, 3, sq, strided, scale=0.125)
+    k, v = (_bhsd(g, cuda, dtype, 2, 3, sk, strided) for _ in range(2))
     before = (sa.short_attention.lse_launches, sa.short_attention_bwd.launches)
     out, lse = sa._forward(q, k, v, 1.0, with_lse=True)
     want, wlse = sa.short_attention_reference(q, k, v, scale=1.0, with_lse=True)
     assert lse.shape == (6, sq) and lse.dtype == torch.float32
     assert_matches_plain(out, want)
     assert_matches_plain(lse, wlse, rel=REL_TOL[torch.float32])
-    do = rnd(6, sq, 64)
+    do = _bhsd(g, cuda, dtype, 2, 3, sq, strided)
     got = sa.short_attention_bwd(q, k, v, want, wlse, do)
     again = sa.short_attention_bwd(q, k, v, want, wlse, do)
     torch.cuda.synchronize()
@@ -439,6 +442,30 @@ def test_cuda_short_lse_and_bwd_match_plain(cuda, dtype, sq, sk):
     for a, a2, w in zip(got, again, ref):
         assert a.is_contiguous() and torch.equal(a, a2)
         assert_matches_plain(a, w)
+
+
+# K9's splits depend on (Sq, Sk) alone: slice 0 of a B = 4 call has the bits
+# of a B = 1 call, and a call the same bits twice, at the shapes that take
+# each split (the forward with the LSE at 64 x 4 096, the backward there and
+# at 4 100 x 64)
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(64, 4096), (4100, 64)])
+def test_cuda_short_splits_do_not_depend_on_the_batch(cuda, sq, sk):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, do = (_bhsd(g, cuda, torch.bfloat16, 4, 3, n, True, scale=f)
+                   for n, f in ((sq, 0.125), (sk, 1.0), (sk, 1.0), (sq, 1.0)))
+    one = lambda x: x[:1].clone()
+
+    def run(q_, k_, v_, do_):
+        out, lse = sa._forward(q_, k_, v_, 1.0, with_lse=True)
+        return (out, lse, *sa.short_attention_bwd(q_, k_, v_, out, lse, do_))
+    four, twice = run(q, k, v, do), run(q, k, v, do)
+    alone = run(one(q), one(k), one(v), one(do))
+    torch.cuda.synchronize()
+    for name, a, a2, b1 in zip(("out", "lse", "dq", "dk", "dv"), four, twice,
+                               alone):
+        assert torch.equal(a, a2), name
+        assert torch.equal(a[: b1.shape[0]], b1), name
 
 
 @pytest.mark.cuda

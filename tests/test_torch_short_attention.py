@@ -89,9 +89,8 @@ def test_plain_k9_matches_pallas_forward_and_vjp(sq, sk, scale, dtype):
     tq, tk, tv = (torch.from_numpy(a).to(tdt).requires_grad_()
                   for a in (q, k, v))
     out = short_attention(tq, tk, tv, scale=scale)
-    # the (B, H) unflatten of the Function's (B*H, S, D) output
-    assert isinstance(out.grad_fn.next_functions[0][0],
-                      ShortAttentionFn._backward_cls)
+    # the Function takes and returns (B, H, S, D): its node is the output's
+    assert isinstance(out.grad_fn, ShortAttentionFn._backward_cls)
     grads = torch.autograd.grad(out, (tq, tk, tv),
                                 torch.from_numpy(do).to(tdt))
     with torch.no_grad():
