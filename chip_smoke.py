@@ -235,7 +235,8 @@ def phase_kernels(torch, seed: int) -> list[dict]:
     # heads, 1 369 condition + 512 latent tokens) and the DINOv2-giant
     # conditioner (24 heads, 1 370 tokens), K2 in the ShapeVAE decode (16
     # heads, 512 latents: two resident segments of 384 + 128 keys), K6 in
-    # the volume query (16 heads, 8 192 points x 512 latents) and at the
+    # the volume query (16 heads, 8 192 points x 512 latents; once more on
+    # the (B, S, H, 64) views the dispatcher hands it, "_bshd") and at the
     # edges of its route with ragged query counts.
     cases = [
         ("flash_fwd", "global", 1, 12, 3888, 3888, True),
@@ -250,6 +251,7 @@ def phase_kernels(torch, seed: int) -> list[dict]:
         ("folded_fwd", "ragged", 2, 12, 200, 1000, False),
         ("folded_fwd", "vae", 1, 16, 512, 512, True),
         ("flash_single_kv", "volume_query", 1, 16, 8192, 512, True),
+        ("flash_single_kv", "volume_query_bshd", 1, 16, 8192, 512, False),
         ("flash_single_kv", "kv200", 2, 12, 1000, 200, False),
         ("flash_single_kv", "kv385", 2, 12, 777, 385, False),
         ("flash_single_kv", "kv1000", 2, 12, 333, 1000, False),
@@ -272,9 +274,13 @@ def phase_kernels(torch, seed: int) -> list[dict]:
             if dtype == torch.float32 and b * h * sq * sk > 2 ** 31:
                 continue   # the scalar f32 path checks the smaller shapes
             if kname in ("flash_fwd", "flash_single_kv"):
-                q = randn(b, h, sq, 64, dtype=dtype)
-                k = randn(b, h, sk, 64, dtype=dtype)
-                v = randn(b, h, sk, 64, dtype=dtype)
+                if case.endswith("_bshd"):
+                    q, k, v = (randn(b, n, h, 64, dtype=dtype).transpose(1, 2)
+                               for n in (sq, sk, sk))
+                else:
+                    q = randn(b, h, sq, 64, dtype=dtype)
+                    k = randn(b, h, sk, 64, dtype=dtype)
+                    v = randn(b, h, sk, 64, dtype=dtype)
                 launch = (fa._forward_k1 if kname == "flash_fwd"
                           else fa._forward_single_kv)
                 run = lambda: launch(q, k, v, scale_in_dtype(q, None), False)[0]
@@ -339,10 +345,14 @@ def phase_kernels(torch, seed: int) -> list[dict]:
 def split_note(kname: str, sq: int, sk: int, dname: str) -> str:
     """`` n_split N`` for a K1 row (bf16 calls split by split_count; f32
     never) and a K3 / K4 row (K4's bf16 dq pass splits by the same rule, K3
-    never); for a K9 row its own rules' (short_split_count; the backward's
-    dk/dv pass by short_dkv_split_count); else nothing."""
+    never); for a K9 backward or K5 row its plan's (short_split_count; the
+    dk/dv pass by short_dkv_split_count; K5 takes K9's plan over its B*H
+    slices); for a K6 row its grid (single_kv_plan at B*H 16: consumers,
+    query tiles a block, V resident); else nothing."""
     import torch
-    from motion324_tpu_torch.ops.flash_attention import bwd_plan, split_count
+    from motion324_tpu_torch.ops.flash_attention import (bwd_plan,
+                                                         single_kv_plan,
+                                                         split_count)
     from motion324_tpu_torch.ops.short_attention import (short_bwd_plan,
                                                          short_split_count)
     if kname.startswith("flash_fwd"):
@@ -351,9 +361,13 @@ def split_note(kname: str, sq: int, sk: int, dname: str) -> str:
         return f" n_split {bwd_plan(1, sq, sk, getattr(torch, dname))[1]}"
     if kname.startswith("short_fwd"):
         return f" n_split {short_split_count(sq, sk) if dname == 'bfloat16' else 1}"
-    if kname == "short_bwd":
+    if kname in ("short_bwd", "folded_bwd"):
         n, m, _, _ = short_bwd_plan(1, sq, sk, getattr(torch, dname))
         return f" n_split {n} dkv_split {m}"
+    if kname.startswith("flash_single_kv") and dname == "bfloat16":
+        c, per, res = single_kv_plan(16, sq, sk)
+        return (f" consumers {c} tiles/block at BH16 {per} V "
+                f"{'resident' if res else 'streamed'}")
     return ""
 
 
@@ -846,8 +860,11 @@ def phase_pipeline(torch, seed: int, repo: str) -> dict:
 def kernel_group(name: str) -> str:
     """The kernel group of a CUDA kernel's name in a profile. The Hopper
     attention kernels carry their library's tag as a template argument
-    (k1_flash_fwd, k9_short_fwd, k34_flash_bwd, k9_short_bwd)."""
+    (k1_flash_fwd, k6_single_kv, k9_short_fwd, k34_flash_bwd,
+    k5_folded_bwd, k9_short_bwd)."""
     n = name.lower()
+    if "folded_bwd" in n:
+        return "K5 folded_bwd"
     if "short_fwd" in n:
         return "K9 short_fwd"
     if "short_bwd" in n or "bwd_dq_f32<true>" in n \
@@ -866,16 +883,12 @@ def kernel_group(name: str) -> str:
         return "K3/K4 delta, dq cast"
     if "bwd_dkv_f32<true, false>" in n:
         return "K3 flash_bwd fused"
-    if "bwd_dkv_bf16" in n or "bwd_dkv_f32<true, true>" in n:
-        return "K5 folded_bwd"
     if "bwd_dq_" in n or "bwd_dkv_f32<false" in n:
         return "K4 flash_bwd two-pass"
     if "masked_fwd" in n:
         return "K7 masked_flash"
     if "raster_kernel" in n:
         return "K8 rasterize"
-    if "f32_to_bf16" in n:
-        return "K5 dq cast"
     if any(w in n for w in ("gemm", "xmma", "cutlass", "nvjet")):
         return "matmul"
     if "memcpy" in n or "memset" in n:
@@ -1035,9 +1048,10 @@ def backward_faults(torch, fa, fo) -> dict:
 # H100 80GB HBM3 at 700 W, over seeds 0-3 (seed 0 twice, reading the same),
 # the sound readings were at most 3.3e-4 (loss), 4.8e-4 (grad norm), 2.6e-3
 # (grads) and 9.8e-3 to 1.1e-2 (param_grad, a q/k-norm or projection weight
-# of an attention block); the kernel path against itself, which differs only
-# in the order of K3's and K5's dq atomics, read 5.7e-4 to 6.4e-4 (grads)
-# and 4.4e-3 to 5.0e-3 (param_grad). The injected backward faults read
+# of an attention block); the kernel path against itself, which differs
+# only in the order of K3's dq sums, read at most 5.7e-4 to 6.4e-4 (grads)
+# and 4.4e-3 to 5.0e-3 (param_grad), readings taken while K5's dq sums
+# varied too. The injected backward faults read
 # param_grad 1.0 (K3 dq zeroed), 0.10 (K5 dk 10% low) and 0.13-0.23
 # (K3 dropping 64 keys), each on an attention q/k-norm weight, whose
 # gradient reaches it only through the faulty output; their grads readings
@@ -1116,12 +1130,12 @@ def phase_training(torch, seed: int) -> dict:
         f"grad norm {norm_k:.5f} vs {norm_p:.5f}; relative: "
         + ", ".join(f"{k} {v:.3e} (tol {TRAIN_TOL[k]:.0e})" for k, v in readings.items())
         + f"; worst parameter {worst_name}")
-    # the same step on the kernel path again: K3 and K5 add dq in an order
-    # that varies, so the two differ only by the order of those sums
+    # the same step on the kernel path again: K3 adds dq in an order that
+    # varies, so the two differ only by the order of those sums
     _, grads_r, _ = step_grads(torch, model, micros, seed)
     r_total, r_worst, r_name = grad_errors(grads_r, grads_k)
     del grads_r
-    log(f"  kernel path run twice (dq summed in another order): grads "
+    log(f"  kernel path run twice (K3's dq summed in another order): grads "
         f"{r_total:.3e}, worst parameter {r_worst:.3e} ({r_name})")
     # every reading is printed before the phase fails on any of them
     problems = []
@@ -1265,7 +1279,7 @@ def phase_training(torch, seed: int) -> dict:
                             f"{again.step}")
     # remat, the recipe's setting: each block runs its forward again in the
     # backward, so the LSE forwards launch twice; the gradients stay within
-    # the kernel-vs-plain limits (K3/K5 sum dq in a varying order) and the
+    # the kernel-vs-plain limits (K3 sums dq in a varying order) and the
     # peak memory falls
     peaks, grads, totals = {}, {}, {}
     for remat in (False, True):

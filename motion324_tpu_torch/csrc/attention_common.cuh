@@ -1,5 +1,7 @@
-// Device code shared by the attention kernels (flash_fwd.cu, folded_fwd.cu,
-// and through attention_bwd.cuh the backward kernels).
+// Device code shared by the attention kernels: the mma.sync forwards of K2
+// (folded_fwd.cu) and K7 (masked_flash.cu), the scalar f32 checking paths
+// (here, attention_bwd.cuh, flash_single_kv.cu), and the constants and
+// bf16 packing that the Hopper kernels (hopper.cuh) use.
 //
 // bf16: one warp owns 16 query rows. Q stays in registers as mma.sync A
 // fragments; keys arrive in 64-key chunks in shared memory; S = Q K^T and

@@ -58,7 +58,7 @@ dq_from_acc(const float* __restrict__ acc, bf16* __restrict__ dq, int sq,
   float d[32];
 #pragma unroll
   for (int f = 0; f < 32; ++f) d[f] = src[f * 32];
-  store_acc_bf16(dq + (long long)bh * sq * kD, d, blockIdx.x * 64, sq, t);
+  store_acc_bf16(dq + (long long)bh * sq * kD, kD, d, blockIdx.x * 64, sq, t);
 }
 
 }  // namespace
@@ -86,11 +86,14 @@ extern "C" int m324_flash_bwd(const void* q, const void* k, const void* v,
                               int bh, int sq, int sk, int n_split, int dtype,
                               int fused, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // contiguous (bh, S, 64) inputs as batch 1 of bh heads
+  // contiguous (bh, S, 64) inputs and outputs, and the compact (bh, sq)
+  // lse, as batch 1 of bh heads
   const long long sq_s = (long long)sq * kD, sk_s = (long long)sk * kD;
-  const long long st[15] = {bh * sq_s, sq_s, kD, bh * sk_s, sk_s, kD,
+  const long long st[27] = {bh * sq_s, sq_s, kD, bh * sk_s, sk_s, kD,
                             bh * sk_s, sk_s, kD, bh * sq_s, sq_s, kD,
-                            bh * sq_s, sq_s, kD};
+                            bh * sq_s, sq_s, kD, (long long)bh * sq, sq, 1,
+                            bh * sq_s, sq_s, kD, bh * sk_s, sk_s, kD,
+                            bh * sk_s, sk_s, kD};
   const Strided x{st, 1};
   if (dtype != 1) {
     if (work_floats < (long long)bh * sq) return 903;
@@ -130,6 +133,9 @@ extern "C" int m324_flash_bwd(const void* q, const void* k, const void* v,
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
+  a.dk_bs = a.dv_bs = bh * sk_s;
+  a.dk_hs = a.dv_hs = sk_s;
+  a.dk_rs = a.dv_rs = kD;
   a.lse2 = work;
   a.delta = work + rows;
   a.dq_acc = work + 2 * rows;

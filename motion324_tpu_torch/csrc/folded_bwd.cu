@@ -3,54 +3,86 @@
 // Replaces the TPU kernel `_bwd_kernel` in motion324_tpu/ops/folded_attention.py
 // (called from `_folded_core_bwd`): per head, dq, dk and dv of attention over
 // the model-native (B, S, H*64) layout from the per-head f32 lse (B, Sq, H)
-// saved by the forward (folded_fwd.cu). Unlike K3, delta = rowsum(dO * O) is
-// computed inside the kernel from O, as the TPU kernel does.
-//
-// q, k, v, o and dO are read through their batch and row strides, so the
-// q/k/v views of the fused QKV projection go in without a copy; dq, dk and
-// dv are written as contiguous (B, S, H*64) tensors.
+// saved by the forward (folded_fwd.cu), for q already multiplied by the
+// logit scale:
+//   P = exp(q k^T - lse) in f32,  dV = P^T dO with P rounded to dO's dtype,
+//   delta = rowsum(dO * O) in f32 (computed here from O, as the TPU kernel
+//   does),  dS = P * (dO V^T - delta) rounded to q's dtype,
+//   dQ = dS K,  dK = dS^T q.
 //
 // What bounds it on the H100: at the local-attention shape (24 images x 12
-// heads x 324^2) the work is about 9 GFLOP against about 60 MB of q, k, v,
-// o, dO, dq, dk, dv, so memory.
-// What the design does about that: one block of 4 warps per (image, head,
-// 64-key tile) keeps that tile's K and V as register fragments and its dk/dv
-// sums in f32 registers, and walks the head's queries in 64-row tiles
-// through shared memory (attention_bwd.cuh, the kernel K3 uses, with the
-// strides and the in-kernel delta); dq is summed over the key tiles with
-// f32 atomicAdd into a workspace and rounded to bf16 by a second launch. The
-// TPU kernel keeps the whole KV of a head resident instead; with 6 key
-// tiles per head here, each query tile is read 6 times, mostly from L2.
+// heads x 324^2, the same work as the K9 backward's local row) about 9 GFLOP
+// against about 60 MB of q, k, v, o, dO, dq, dk and dv: the bytes.
 //
-// The f32 variant runs scalar FMA and is a checking path, not a fast one.
+// What the design does about that (bf16): K4's two-pass route of
+// hopper_bwd.cuh, instantiated under K5's own tag, as the K9 backward
+// (short_bwd.cu) instantiates it: the preprocessing launch (delta from O and
+// dO, lse * log2(e) read through the (B, Sq, H) lse's strides), the TMA +
+// wgmma dq pass and the TMA + wgmma dk/dv pass, split by K9's rules over
+// the B*H slices (folded_bwd_plan in ops/folded_attention.py; the local
+// layers run unsplit). q, k, v, o and dO are read through (batch, head,
+// row) strides of the folded views (head stride 64, row stride 3 H 64 on
+// the fused-QKV slices), and dq, dk, dv are written through the same kind
+// of strides straight into contiguous (B, S, H*64), with no permute after.
+// No atomics touch the data: a call repeats bit for bit, and a slice's bits
+// do not depend on the batch.
+//
+// The f32 variant runs the scalar checking kernels of attention_bwd.cuh
+// (32 x 32 tiles, delta from O, no atomics), not a fast path.
 
-#include "attention_bwd.cuh"
+#include "hopper_bwd.cuh"      // the Hopper passes
+#include "attention_bwd.cuh"   // the f32 checking kernels
 
 using namespace m324;
+using namespace m324::bwd;
 
-// q (B, sq, H*64), k, v (B, sk, H*64), o and dout (B, sq, H*64): each with its
-// own batch stride (*_bs) and row stride (*_rs) in elements, unit stride
-// within a row, rows 16-byte aligned. lse: f32 (B, sq, H) contiguous.
-// dq_acc: f32 (B, sq, H*64) set to zero (for float32 pass dq itself). dq
-// (B, sq, H*64) and dk, dv (B, sk, H*64): contiguous, input dtype. dtype:
-// 0 = float32, 1 = bfloat16. Launches on `stream`, allocates nothing, does
-// not synchronise; returns the first CUDA error seen.
+namespace {
+struct k5_folded_bwd {};   // K5's kernels in a profile
+}  // namespace
+
+// q, o, dout: (b, sq, h*64); k, v: (b, sk, h*64); one dtype (0 = float32,
+// 1 = bfloat16); q already multiplied by the logit scale. strides[0..26],
+// in elements: the (batch, head, row) strides of q, k, v, o, dO (head
+// stride 64), of the f32 lse (b, sq, h) and of the outputs dq (b, sq, h*64),
+// dk, dv (b, sk, h*64), which the caller allocates; unit stride within a
+// row, 16-byte-aligned rows and base. bf16: the dq pass splits the keys
+// n_split ways and the dk/dv pass the query tiles dkv_split ways; work
+// holds work_floats f32 (two_pass_floats in hopper_bwd.cuh) and tickets
+// n_tickets zeroed ints, one per (b*h, tile) of a split pass, which the call
+// leaves zeroed. f32: never split, no workspace, outputs contiguous.
+// Launches on `stream`, allocates nothing, does not synchronise; returns 0,
+// the first CUDA error, 900 when the driver has no cuTensorMapEncodeTiled,
+// 901 for an empty split or more than 16 splits, 902 for too few tickets,
+// 903 for too small a workspace, or 1000 + the driver's error when a tensor
+// map is refused.
 extern "C" int m324_folded_bwd(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
-                               const float* lse, float* dq_acc, void* dq,
-                               void* dk, void* dv, int batch, int heads,
-                               int sq, int sk, long long q_bs, long long q_rs,
-                               long long k_bs, long long k_rs, long long v_bs,
-                               long long v_rs, long long o_bs, long long o_rs,
-                               long long do_bs, long long do_rs, int dtype,
-                               void* stream) {
+                               const float* lse, float* work,
+                               long long work_floats, int* tickets,
+                               int n_tickets, void* dq, void* dk, void* dv,
+                               int b, int h, int sq, int sk,
+                               const long long* strides, int n_split,
+                               int dkv_split, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* st = strides;
+  if (dtype == 1)
+    return two_pass_bf16<k5_folded_bwd>(q, k, v, o, dout, lse, work,
+                                        work_floats, tickets, n_tickets, dq, dk,
+                                        dv, h, sq, sk, Strided{st, b}, n_split,
+                                        dkv_split, s);
   BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
-  a.lse = lse; a.delta = nullptr; a.dq_acc = dq_acc; a.dq = dq; a.dk = dk;
-  a.dv = dv; a.sq = sq; a.sk = sk; a.heads = heads;
-  a.q_bs = q_bs; a.q_rs = q_rs; a.k_bs = k_bs; a.k_rs = k_rs;
-  a.v_bs = v_bs; a.v_rs = v_rs; a.o_bs = o_bs; a.o_rs = o_rs;
-  a.do_bs = do_bs; a.do_rs = do_rs;
-  a.l_bs = (long long)sq * heads; a.l_rs = heads;
-  return launch_dkv(a, batch, dtype, static_cast<cudaStream_t>(stream));
+  a.lse = lse; a.delta = nullptr; a.dq_acc = nullptr; a.dq = dq; a.dk = dk;
+  a.dv = dv; a.sq = sq; a.sk = sk; a.heads = h;
+  a.q_bs = st[0]; a.q_rs = st[2]; a.k_bs = st[3]; a.k_rs = st[5];
+  a.v_bs = st[6]; a.v_rs = st[8]; a.o_bs = st[9]; a.o_rs = st[11];
+  a.do_bs = st[12]; a.do_rs = st[14];
+  a.l_bs = (long long)sq * h; a.l_rs = h;
+  dim3 grid_q((sq + kST - 1) / kST, h, b);
+  bwd_dq_f32<true><<<grid_q, kSThreads, 0, s>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid_k((sk + kST - 1) / kST, h, b);
+  bwd_dkv_f32<false, true><<<grid_k, kSThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // The Hopper (sm_90a) attention backward passes shared by K3 / K4
-// (flash_bwd.cu) and the K9 backward (short_bwd.cu). All compute, for q
+// (flash_bwd.cu), K5 (folded_bwd.cu) and the K9 backward (short_bwd.cu).
+// All compute, for q
 // already multiplied by the logit scale,
 //   P = exp(q k^T - lse), dV = P^T dO, dP = dO V^T, dS = P * (dP - delta),
 //   dQ = dS K, dK = dS^T q, delta = rowsum(dO * O),
@@ -7,13 +8,14 @@
 // for dV, dS to q's dtype for dQ and dK, f32 sums, outputs in the input
 // dtype. exp is taken as exp2 with log2(e) folded into the logits and lse.
 // Each library instantiates the kernels with a tag type of its own, so that
-// a profile tells K4's launches from K9's.
+// a profile tells K4's launches from K5's and K9's.
 //
 // The passes (bf16):
 // - bwd_prep computes delta in f32 and copies lse * log2(e) into rows padded
 //   to 128 (padding: lse +inf, delta 0, so padded query rows get P = 0 with
 //   no test in the loops), and for K3 zeroes the f32 dq workspace, all in
-//   one launch. It reads O and dO through (batch, head, row) strides.
+//   one launch. It reads O, dO and the LSE through (batch, head, row)
+//   strides (the LSE: K3 / K4 / K9's compact (B*H, Sq), K5's (B, Sq, H)).
 // - bwd_dkv_hopper: one block per (b*h, key tile of 64 keys per consumer
 //   warpgroup: 128 keys with two consumers, 64 with one when Sq <= 64 or
 //   Sk <= 64, query split). K and V stay in shared memory; a producer
@@ -49,7 +51,9 @@
 // Neither split uses atomics on the data: the two-pass route repeats bit
 // for bit, and a slice's bits do not depend on the batch.
 // - Q, K, V and dO are read through tensor maps built from (batch, head,
-//   row) strides; dq, dk and dv are written contiguous (b*h, S, 64).
+//   row) strides; dq, dk and dv are written through (batch, head, row)
+//   strides too (K3 / K4 / K9: contiguous (B, H, S, 64); K5: contiguous
+//   (B, S, H*64), with no permute afterwards).
 // - Ragged tails: TMA zero-fills rows past the end; keys past Sk are masked
 //   (P = 0) in the one ragged tile, query rows past Sq by the padded lse.
 
@@ -67,9 +71,10 @@ constexpr int kKvTile = 128;        // keys per K/V stage (dq pass)
 constexpr int kMaxSplits = 16;      // the wrappers' rules keep to it
 
 struct BwdHArgs {
-  bf16* dq;
+  bf16* dq;            // each through its (batch, head, row) strides
   bf16* dk;
   bf16* dv;
+  long long dq_bs, dq_hs, dq_rs, dk_bs, dk_hs, dk_rs, dv_bs, dv_hs, dv_rs;
   const float* lse2;   // (bh, sq_pad): lse * log2(e); +inf past sq
   const float* delta;  // (bh, sq_pad): rowsum(dO * O); 0 past sq
   float* dq_acc;       // K3: (bh, sq_pad / 64) tiles of 64 x 64, fragment order
@@ -84,24 +89,25 @@ struct BwdHArgs {
 // One row of 64 per 8 threads: delta = rowsum(dO * O) in f32 into
 // delta[row]; lse2[row] = lse * log2(e) (when lse2 is given); rows at or
 // past sq get delta 0 and lse2 +inf. `stride` rows per (b*h); ws, when
-// given, gets its 64 floats of each row zeroed. O and dO are read through
-// their (batch, head, row) strides, slice bh being (bh / h, bh % h).
+// given, gets its 64 floats of each row zeroed. O, dO and lse are read
+// through their (batch, head, row) strides, slice bh being (bh / h, bh % h).
 template <typename T, typename Tag>
 __global__ void __launch_bounds__(256)
 bwd_prep(const T* __restrict__ o, const T* __restrict__ dout,
          const float* __restrict__ lse, float* __restrict__ lse2,
          float* __restrict__ delta, float* __restrict__ ws, int sq, int stride,
          long long rows, int h, long long o_bs, long long o_hs, long long o_rs,
-         long long do_bs, long long do_hs, long long do_rs) {
+         long long do_bs, long long do_hs, long long do_rs, long long l_bs,
+         long long l_hs, long long l_rs) {
   const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
   const int part = threadIdx.x % 8;
   const bool valid = row < rows;
   const long long bh = valid ? row / stride : 0;
   const int r = valid ? static_cast<int>(row % stride) : 0;
   const bool real = valid && r < sq;
+  const long long batch = bh / h, head = bh % h;
   float acc = 0.f;
   if (real) {
-    const long long batch = bh / h, head = bh % h;
     const T* orow = o + batch * o_bs + head * o_hs + r * o_rs + part * 8;
     const T* drow = dout + batch * do_bs + head * do_hs + r * do_rs + part * 8;
     if constexpr (sizeof(T) == 2) {
@@ -126,7 +132,8 @@ bwd_prep(const T* __restrict__ o, const T* __restrict__ dout,
   if (part == 0) {
     delta[row] = acc;
     if (lse2 != nullptr)
-      lse2[row] = real ? lse[bh * sq + r] * kLog2e : __int_as_float(0x7f800000);
+      lse2[row] = real ? lse[batch * l_bs + head * l_hs + r * l_rs] * kLog2e
+                       : __int_as_float(0x7f800000);
   }
   if (ws != nullptr) {
     float4* w = reinterpret_cast<float4*>(ws + row * kD + part * 8);
@@ -154,18 +161,19 @@ struct DkvLayout {
 };
 
 // Store a 64 x 64 f32 accumulator of rows row0 + (16w + g, + 8) below
-// `valid` as bf16 rows of 64 (a contiguous (rows, 64) output).
-__device__ __forceinline__ void store_acc_bf16(bf16* out, const float (&d)[32],
-                                               int row0, int valid, int t) {
+// `valid` as bf16 rows of 64, `rs` elements apart.
+__device__ __forceinline__ void store_acc_bf16(bf16* out, long long rs,
+                                               const float (&d)[32], int row0,
+                                               int valid, int t) {
   const int warp = t >> 5, lane = t & 31, g = lane >> 2, q4 = lane & 3;
   const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = 8 * j + 2 * q4;
     if (r0 < valid)
-      *reinterpret_cast<uint32_t*>(out + (long long)r0 * kD + col) = pack_bf16(d[4 * j], d[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(out + r0 * rs + col) = pack_bf16(d[4 * j], d[4 * j + 1]);
     if (r1 < valid)
-      *reinterpret_cast<uint32_t*>(out + (long long)r1 * kD + col) = pack_bf16(d[4 * j + 2], d[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(out + r1 * rs + col) = pack_bf16(d[4 * j + 2], d[4 * j + 3]);
   }
 }
 
@@ -384,11 +392,11 @@ bwd_dkv_hopper(const __grid_constant__ CUtensorMap tq,
   }
 
   const int row0 = key0 + c * 64;
-  bf16* dkb = a.dk + (long long)bh * a.sk * kD;
-  bf16* dvb = a.dv + (long long)bh * a.sk * kD;
+  bf16* dkb = a.dk + batch * a.dk_bs + head * a.dk_hs;
+  bf16* dvb = a.dv + batch * a.dv_bs + head * a.dv_hs;
   if (a.dkv_split == 1) {
-    store_acc_bf16(dkb, dk, row0, a.sk, t);
-    store_acc_bf16(dvb, dv, row0, a.sk, t);
+    store_acc_bf16(dkb, a.dk_rs, dk, row0, a.sk, t);
+    store_acc_bf16(dvb, a.dv_rs, dv, row0, a.sk, t);
     return;
   }
   // query split: this block's f32 partial dK and dV in fragment order; the
@@ -422,8 +430,8 @@ bwd_dkv_hopper(const __grid_constant__ CUtensorMap tq,
         dv[f] += __ldcg(ps + 64 * kD + f * 128);
       }
     }
-    store_acc_bf16(dkb, dk, row0, a.sk, t);
-    store_acc_bf16(dvb, dv, row0, a.sk, t);
+    store_acc_bf16(dkb, a.dk_rs, dk, row0, a.sk, t);
+    store_acc_bf16(dvb, a.dv_rs, dv, row0, a.sk, t);
     if (c == 0 && t == 0) a.tickets[tile] = 0;   // ready for the next call
   }
 }
@@ -581,9 +589,9 @@ bwd_dq_hopper(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
   }
 
-  bf16* dqb = a.dq + (long long)bh * a.sq * kD;
+  bf16* dqb = a.dq + batch * a.dq_bs + head * a.dq_hs;
   if (a.n_split == 1) {
-    store_acc_bf16(dqb, dq, q0 + c * 64, a.sq, t);
+    store_acc_bf16(dqb, a.dq_rs, dq, q0 + c * 64, a.sq, t);
     return;
   }
   // split: this block's f32 partial in fragment order; the last block of the
@@ -611,14 +619,15 @@ bwd_dq_hopper(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int f = 0; f < 32; ++f) sum[f] += __ldcg(ps + f * 128);
     }
-    store_acc_bf16(dqb, sum, q0 + c * 64, a.sq, t);
+    store_acc_bf16(dqb, a.dq_rs, sum, q0 + c * 64, a.sq, t);
     if (c == 0 && t == 0) a.tickets[tile] = 0;   // ready for the next call
   }
 }
 
 // ------------------------------------------------------------ launches
-// The (batch, head, row) strides of the five inputs, in elements, in the
-// order q, k, v, o, dO (st[3 i .. 3 i + 2] for input i), and the batch b.
+// The (batch, head, row) strides in elements of the five inputs q, k, v, o,
+// dO, then of the f32 lse and of the three outputs dq, dk, dv (st[3 i ..
+// 3 i + 2] for tensor i of those nine), and the batch b.
 struct Strided {
   const long long* st;
   int b;
@@ -676,7 +685,7 @@ int launch_dq_h(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The preprocessing launch over bh slices of `stride` rows (O and dO
+// The preprocessing launch over bh slices of `stride` rows (O, dO and lse
 // through x's strides, slice bh being (bh / h, bh % h)).
 template <typename Tag>
 int launch_prep(const void* o, const void* dout, const float* lse, float* lse2,
@@ -686,14 +695,15 @@ int launch_prep(const void* o, const void* dout, const float* lse, float* lse2,
   const unsigned blocks = static_cast<unsigned>((rows + 31) / 32);
   const long long* so = x.st + 9;
   const long long* sd = x.st + 12;
+  const long long* sl = x.st + 15;
   if (dtype == 1)
     bwd_prep<bf16, Tag><<<blocks, 256, 0, s>>>(static_cast<const bf16*>(o),
         static_cast<const bf16*>(dout), lse, lse2, delta, ws, sq, stride, rows,
-        h, so[0], so[1], so[2], sd[0], sd[1], sd[2]);
+        h, so[0], so[1], so[2], sd[0], sd[1], sd[2], sl[0], sl[1], sl[2]);
   else
     bwd_prep<float, Tag><<<blocks, 256, 0, s>>>(static_cast<const float*>(o),
         static_cast<const float*>(dout), lse, lse2, delta, ws, sq, stride, rows,
-        h, so[0], so[1], so[2], sd[0], sd[1], sd[2]);
+        h, so[0], so[1], so[2], sd[0], sd[1], sd[2], sl[0], sl[1], sl[2]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -717,13 +727,13 @@ inline long long two_pass_floats(int bh, int sq, int sk, int n_split, int dkv_sp
   return need;
 }
 
-// The bf16 two-pass backward (K4; K9): the preprocessing launch, the dq
+// The bf16 two-pass backward (K4; K5; K9): the preprocessing launch, the dq
 // pass (keys split n_split ways) and the dk/dv pass (queries split
 // dkv_split ways), on the workspace of two_pass_floats. b batches of h
-// heads, q, k, v, o, dO through x's strides, dq, dk, dv contiguous
-// (b*h, S, 64). Returns 0, a CUDA error, 901 for an empty or too large a
-// split, 902 for too few tickets, 903 for too small a workspace, or 900 /
-// 1000 + the driver's error from a tensor map.
+// heads; q, k, v, o, dO, lse, dq, dk and dv through x's strides. Returns 0,
+// a CUDA error, 901 for an empty or too large a split, 902 for too few
+// tickets, 903 for too small a workspace, or 900 / 1000 + the driver's
+// error from a tensor map.
 template <typename Tag>
 int two_pass_bf16(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const float* lse, float* work,
@@ -742,6 +752,10 @@ int two_pass_bf16(const void* q, const void* k, const void* v, const void* o,
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
+  const long long* so = x.st + 18;
+  a.dq_bs = so[0]; a.dq_hs = so[1]; a.dq_rs = so[2];
+  a.dk_bs = so[3]; a.dk_hs = so[4]; a.dk_rs = so[5];
+  a.dv_bs = so[6]; a.dv_hs = so[7]; a.dv_rs = so[8];
   a.lse2 = work;
   a.delta = work + rows;
   a.dq_acc = nullptr;

@@ -78,11 +78,19 @@ extern "C" int m324_short_bwd(const void* q, const void* k, const void* v,
                               int dkv_split, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* st = strides;
-  if (dtype == 1)
+  if (dtype == 1) {
+    // the compact (b*h, sq) lse and the contiguous (b, h, S, 64) outputs
+    const long long sq_s = (long long)sq * kD, sk_s = (long long)sk * kD;
+    long long all[27] = {0};
+    for (int i = 0; i < 15; ++i) all[i] = st[i];
+    const long long rest[12] = {(long long)h * sq, sq, 1, h * sq_s, sq_s, kD,
+                                h * sk_s, sk_s, kD, h * sk_s, sk_s, kD};
+    for (int i = 0; i < 12; ++i) all[15 + i] = rest[i];
     return two_pass_bf16<k9_short_bwd>(q, k, v, o, dout, lse, work, work_floats,
                                        tickets, n_tickets, dq, dk, dv, h, sq,
-                                       sk, Strided{st, b}, n_split, dkv_split,
+                                       sk, Strided{all, b}, n_split, dkv_split,
                                        s);
+  }
   if (b != 1) return 904;
   BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;

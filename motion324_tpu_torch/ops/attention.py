@@ -101,9 +101,9 @@ def multi_head_attention(q, k, v, *, scale: float | None = None,
                               v.transpose(1, 2), scale=scale)
         return out.transpose(1, 2)
 
-    # K1 reads the (B, H, S, D) views through their strides and writes its
-    # output heads-last, so neither way needs a copy (K6 and a
-    # differentiated call copy inside flash_attention)
+    # K1 and K6 read the (B, H, S, D) views through their strides and write
+    # their output heads-last, so neither way needs a copy (a differentiated
+    # call copies inside flash_attention, as K3 / K4 take contiguous inputs)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), scale=scale)
     return out.transpose(1, 2)

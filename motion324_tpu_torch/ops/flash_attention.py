@@ -5,14 +5,16 @@ The forward takes one of two kernels by the KV length, with the JAX
 package's rule (:func:`single_kv_route`): K6, ``csrc/flash_single_kv.cu``,
 when the KV padded to its block fits one block of at most 1 024 keys (KV in
 [1, 256] and [385, 1024]); K1, ``csrc/flash_fwd.cu``, the online softmax
-over KV tiles, otherwise.
+over KV tiles, otherwise. K6 keeps the exact max over all keys (two sweeps
+over a K resident in shared memory, grid by :func:`single_kv_plan`).
 
-K1 reads q, k and v through their (batch, head, row) strides, so the
-dispatcher's ``(B, S, H, 64)`` views go in as they are, and writes its
-output in q's layout. In bf16 it cuts the keys of a call with few query
-tiles into :func:`split_count` ranges, each a block of its own, and adds
-the partial results in split order (:func:`flash_attention_split_reference`
-is the plain version of that arithmetic). The count depends on (Sq, Sk)
+K1 and K6 read q, k and v through their (batch, head, row) strides, so the
+dispatcher's ``(B, S, H, 64)`` views go in as they are, and write their
+output in q's layout (:func:`_empty_out`). In bf16 K1 cuts the keys of a
+call with few query tiles into :func:`split_count` ranges, each a block of
+its own, and adds the partial results in split order
+(:func:`flash_attention_split_reference` is the plain version of that
+arithmetic). The count depends on (Sq, Sk)
 alone, never on B*H, so a slice's output has the same bits at any batch.
 
 :func:`flash_attention` is differentiable. A call that needs no gradient
@@ -46,7 +48,7 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_bwd_reference",
            "flash_attention_bwd_split_reference", "FlashAttentionFn",
            "bwd_plan", "FUSED_BWD_MAX_KV", "SINGLE_KV_MAX", "single_kv_route",
-           "split_count", "split_ranges"]
+           "single_kv_plan", "split_count", "split_ranges"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -58,6 +60,9 @@ FUSED_BWD_MAX_KV = 4096
 # the JAX package's flash forward aims at
 SINGLE_KV_MAX = 1024
 _KV_BLOCK_TARGET = 1024
+# K6 keeps V resident in shared memory beside K up to this many keys; above
+# it V streams through a ring of 128-key tiles (csrc/flash_single_kv.cu)
+SINGLE_KV_RESIDENT_V = 512
 
 # K1's tiles: 128 query rows (64 when Sq <= 64) and 128 keys. A call with
 # fewer than SPLIT_MAX_Q_TILES query tiles cuts its keys so that each (batch,
@@ -113,6 +118,28 @@ def single_kv_route(sk: int) -> bool:
     [257, 384] streams through K1 in blocks of 128, as does KV > 1024."""
     bkv = _pick_kv_block(sk)
     return _ceil_to(sk, bkv) <= min(bkv, SINGLE_KV_MAX)
+
+
+@functools.lru_cache(maxsize=None)
+def single_kv_plan(bh: int, sq: int, sk: int,
+                   sms: int = 132) -> tuple[int, int, bool]:
+    """``(consumers, query tiles per block, V resident)`` of a bf16 K6 call
+    over ``bh`` (batch, head) slices on a card of ``sms`` SMs. A tile is 64
+    query rows per consumer warpgroup (two consumers, one when Sq <= 64);
+    each block walks whole tiles of one slice with that slice's K (and V up
+    to ``SINGLE_KV_RESIDENT_V`` keys) resident. The tiles per block take
+    the fewest waves of blocks times tiles a block, the larger count on a
+    tie (each block loads K once): the volume query's 16 x 64 tiles give 8
+    a block (128 blocks), the UNet's 60 x 8 give 4 (120 blocks). A block
+    computes its tiles alone, so the plan moves no bits."""
+    consumers = 1 if sq <= 64 else 2
+    q_tiles = -(-sq // (64 * consumers))
+    best, per = None, 1
+    for t in range(1, q_tiles + 1):
+        cost = -(-bh * -(-q_tiles // t) // sms) * t
+        if best is None or cost <= best:
+            best, per = cost, t
+    return consumers, per, sk <= SINGLE_KV_RESIDENT_V
 
 
 def scale_in_dtype(q: torch.Tensor, scale: float | None) -> float:
@@ -268,8 +295,9 @@ def _load(name: str, argtypes) -> ctypes.CDLL:
     return lib
 
 
-_FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_K6_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+               ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _K1_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
                ctypes.c_int, ctypes.c_void_p])
@@ -337,8 +365,7 @@ def map_strides(name: str, t: torch.Tensor) -> list[int]:
 
 
 def _check_contiguous(q, k, v):
-    """What K6 and the backward kernels take: contiguous, aligned
-    (B, H, S, 64) q/k/v."""
+    """What K3 / K4 take: contiguous, aligned (B, H, S, 64) q/k/v."""
     _check_shapes(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
@@ -377,14 +404,8 @@ def hopper_forward(name: str, counter, q, k, v, scale: float, with_lse: bool,
     b, h, sq, _ = q.shape
     sk = k.shape[2]
     n_split = split(sq, sk) if q.dtype == torch.bfloat16 else 1
-    if q.stride(1) < q.stride(2):
-        # a (B, S, H, 64) view: the output keeps that layout, so that the
-        # dispatcher's transpose back is contiguous
-        out = torch.empty((b, sq, h, 64), dtype=q.dtype, device=dev).transpose(1, 2)
-        strides += [sq * h * 64, 64, h * 64]
-    else:
-        out = torch.empty((b, h, sq, 64), dtype=q.dtype, device=dev)
-        strides += [h * sq * 64, sq * 64, 64]
+    out, out_strides = _empty_out(q)
+    strides += out_strides
     # one f32 buffer (one allocation): the LSE, then for a split call the
     # partial LSEs and outputs, each part at a 16-byte boundary (the kernel
     # reads the partial outputs as float4); the LSE is a view, so the
@@ -426,6 +447,24 @@ def hopper_forward(name: str, counter, q, k, v, scale: float, with_lse: bool,
     return out, lse
 
 
+def _empty_out(q: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
+    """An uninitialised (B, H, Sq, 64) output for K1 / K6 / K9 and its
+    (batch, head, row) strides: laid out heads-last where q is a
+    (B, S, H, 64) view, so that the dispatcher's transpose back is
+    contiguous, else contiguous."""
+    b, h, sq, _ = q.shape
+    if q.stride(1) < q.stride(2):
+        out = torch.empty((b, sq, h, 64), dtype=q.dtype, device=q.device)
+        return out.transpose(1, 2), [sq * h * 64, 64, h * 64]
+    out = torch.empty((b, h, sq, 64), dtype=q.dtype, device=q.device)
+    return out, [h * sq * 64, sq * 64, 64]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 # the split calls' tickets: one zeroed int32 per (query tile, slice), by
 # (device, stream), since a call leaves them zeroed for the next call on its
 # stream only
@@ -443,24 +482,38 @@ def _tickets(dev, stream, n: int) -> torch.Tensor:
 
 
 def _forward_single_kv(q, k, v, scale: float, with_lse: bool):
-    """K6 on CUDA tensors, as contiguous (B*H, S, 64) slices (the
-    dispatcher's views are copied); raises past ``SINGLE_KV_MAX`` keys."""
+    """K6 on CUDA tensors: ``(out, lse or None)``, q, k, v read through
+    their strides and out laid out heads-last where q is, else contiguous
+    (no copy either way); raises past ``SINGLE_KV_MAX`` keys. Adds one to
+    ``flash_attention.single_kv_launches`` or ``.single_kv_lse_launches``.
+    The volume query launches it 7 088 times a mesh: the host work here is
+    kept lean."""
     if k.shape[2] > SINGLE_KV_MAX:
         raise ValueError(f"the single-KV kernel takes at most {SINGLE_KV_MAX} "
                          f"keys, got {k.shape[2]}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _check_contiguous(q, k, v)
+    strides = _check(q, k, v)
+    dev = q.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _forward_single_kv(q, k, v, scale, with_lse)
     b, h, sq, _ = q.shape
-    out = torch.empty_like(q)
-    lse = (torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    sk = k.shape[2]
+    out, out_strides = _empty_out(q)
+    lse = (torch.empty((b * h, sq), dtype=torch.float32, device=dev)
            if with_lse else None)
-    with torch.cuda.device(q.device):
-        rc = _load("flash_single_kv", _FWD_ARGS).m324_flash_single_kv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b * h, sq, k.shape[2],
-            scale, _DTYPES[q.dtype], _stream(q))
+    _, per_block, v_resident = single_kv_plan(b * h, sq, sk,
+                                              _sm_count(dev.index))
+    rc = _load("flash_single_kv", _K6_ARGS).m324_flash_single_kv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, sq, sk,
+        (ctypes.c_longlong * 12)(*strides, *out_strides), per_block,
+        int(v_resident), scale, _DTYPES[q.dtype],
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
-        raise RuntimeError(f"flash_single_kv launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_single_kv launch failed: error {rc} (CUDA "
+                           f"error below 900; 900 no cuTensorMapEncodeTiled; "
+                           f"901 a plan the kernel does not take; 1000 + the "
+                           f"driver's tensor-map error)")
     if with_lse:
         flash_attention.single_kv_lse_launches += 1
     else:

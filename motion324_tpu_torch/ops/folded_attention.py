@@ -8,10 +8,14 @@ requires grad multiplies q by the logit scale in q's dtype and runs
 :class:`FoldedAttentionFn`: its forward launches the same kernel with the
 per-head f32 LSE ``(B, Sq, H)`` (``folded_attention.lse_launches``), its
 backward is :func:`folded_attention_bwd`, which launches K5
-(``csrc/folded_bwd.cu``; ``folded_attention_bwd.launches``). On a CPU tensor
-every step computes its plain version instead. q, k and v are read through
+(``csrc/folded_bwd.cu``; ``folded_attention_bwd.launches``): K4's two passes
+under K5's name, split by :func:`folded_bwd_plan` (K9's rules over the B*H
+slices), with no atomics, so a call repeats bit for bit and a slice's bits
+do not depend on the batch. On a CPU tensor every step computes its plain
+version instead. q, k and v (and the backward's o and dO) are read through
 their strides (the q/k/v views of a fused QKV projection go in without a
-copy); outputs are contiguous ``(B, S, H*64)``.
+copy); outputs are contiguous ``(B, S, H*64)``, which K5 writes through
+strides with no permute (:func:`folded_bwd_strides`).
 """
 
 from __future__ import annotations
@@ -21,18 +25,17 @@ import ctypes
 import torch
 
 from motion324_tpu_torch.ops.flash_attention import (
-    _DTYPES, _load, _stream, attention_reference,
-    flash_attention_bwd_reference, scale_in_dtype)
+    _DTYPES, _load, _stream, _tickets, attention_reference,
+    flash_attention_bwd_reference, map_strides, scale_in_dtype)
+from motion324_tpu_torch.ops.short_attention import _BWD_ARGS, short_bwd_plan
 
 __all__ = ["folded_attention", "folded_attention_reference",
            "folded_attention_bwd", "folded_attention_bwd_reference",
-           "FoldedAttentionFn"]
+           "FoldedAttentionFn", "folded_bwd_plan", "folded_bwd_strides"]
 
 _FWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _heads_first(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -129,10 +132,38 @@ def _forward(q, k, v, heads: int, scale: float, with_lse: bool):
     return out, lse
 
 
+def folded_bwd_plan(b: int, heads: int, sq: int, sk: int,
+                    dtype: torch.dtype) -> tuple[int, int, int, int]:
+    """``(n_split, dkv_split, workspace floats, tickets)`` of a K5 call over
+    ``b`` images of ``heads`` heads: the K9 backward's plan
+    (:func:`~motion324_tpu_torch.ops.short_attention.short_bwd_plan`) over
+    its ``b * heads`` slices, since K5 runs the same two passes. The local
+    layers (324 x 324) and the ragged rows run unsplit."""
+    return short_bwd_plan(b * heads, sq, sk, dtype)
+
+
+def folded_bwd_strides(q, k, v, o, do, lse, heads: int) -> list[int]:
+    """The 27 (batch, head, row) strides in elements that K5 is handed: q,
+    k, v, o and dO as ``(B, H, S, 64)`` views of their ``(B, S, H*64)``
+    layout (head stride 64, row stride the view's, ``3 H 64`` on the
+    fused-QKV slices; :func:`map_strides`, which refuses what a tensor map
+    does not take), the contiguous f32 lse ``(B, Sq, H)`` (batch ``Sq H``,
+    head 1, row ``H``), then the contiguous ``(B, S, H*64)`` dq, dk and dv
+    the wrapper allocates."""
+    hf = lambda x: x.unflatten(-1, (heads, 64)).transpose(1, 2)
+    st = []
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("dO", do)):
+        st += map_strides(name, hf(t))
+    b, sq, c = q.shape
+    sk = k.shape[1]
+    return st + [sq * heads, 1, heads, sq * c, 64, c, sk * c, 64, c,
+                 sk * c, 64, c]
+
+
 def folded_attention_bwd(q, k, v, o, lse, do, *, heads: int):
     """Gradients ``(dq, dk, dv)``, contiguous ``(B, S, H*64)``, with respect
     to the pre-scaled q, k and v, from the forward's ``o`` and per-head f32
-    ``lse`` ``(B, Sq, H)``. CUDA: K5; CPU:
+    ``lse`` ``(B, Sq, H)``. CUDA: K5, split by :func:`folded_bwd_plan`; CPU:
     :func:`folded_attention_bwd_reference`."""
     if q.device.type == "cpu":
         return folded_attention_bwd_reference(q, k, v, o, lse, do, heads=heads,
@@ -141,29 +172,40 @@ def folded_attention_bwd(q, k, v, o, lse, do, *, heads: int):
     b, sq, c = q.shape
     sk = k.shape[1]
     do = do.contiguous()
-    if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError("dO and O must have q's shape and dtype")
-    _check(o, do, do, heads)
-    if lse.shape != (b, sq, heads) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError(f"lse must be contiguous f32 {(b, sq, heads)}")
-    dk = torch.empty((b, sk, c), dtype=k.dtype, device=k.device)
-    dv = torch.empty((b, sk, c), dtype=v.dtype, device=v.device)
-    if q.dtype == torch.float32:
-        dq = torch.zeros((b, sq, c), dtype=q.dtype, device=q.device)
-        acc = dq
-    else:
-        dq = torch.empty((b, sq, c), dtype=q.dtype, device=q.device)
-        acc = torch.zeros((b, sq, c), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _load("folded_bwd", _BWD_ARGS).m324_folded_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), acc.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, heads, sq, sk,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-            v.stride(1), o.stride(0), o.stride(1), do.stride(0), do.stride(1),
-            _DTYPES[q.dtype], _stream(q))
+    dev = q.device
+    if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype \
+            or o.dtype != q.dtype or do.device != dev or o.device != dev:
+        raise ValueError("dO and O must have q's shape, dtype and device")
+    if lse.shape != (b, sq, heads) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != dev:
+        raise ValueError(f"lse must be contiguous f32 {(b, sq, heads)} on "
+                         f"q's device")
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return folded_attention_bwd(q, k, v, o, lse, do, heads=heads)
+    strides = folded_bwd_strides(q, k, v, o, do, lse, heads)
+    n_split, dkv_split, floats, n_tickets = folded_bwd_plan(b, heads, sq, sk,
+                                                            q.dtype)
+    dq = torch.empty((b, sq, c), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, sk, c), dtype=q.dtype, device=dev)
+    dv = torch.empty((b, sk, c), dtype=q.dtype, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    tickets = _tickets(dev, stream, n_tickets) if n_tickets else None
+    work = (torch.empty(floats, dtype=torch.float32, device=dev)
+            if floats else None)
+    rc = _load("folded_bwd", _BWD_ARGS).m324_folded_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), None if work is None else work.data_ptr(), floats,
+        None if tickets is None else tickets.data_ptr(),
+        0 if tickets is None else tickets.numel(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, heads, sq, sk,
+        (ctypes.c_longlong * 27)(*strides), n_split, dkv_split,
+        _DTYPES[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"folded_bwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"folded_bwd launch failed: error {rc} (CUDA error "
+                           f"below 900; 900 no cuTensorMapEncodeTiled; 901 a "
+                           f"bad split; 902 too few tickets; 903 too small a "
+                           f"workspace; 1000 + the driver's tensor-map error)")
     folded_attention_bwd.launches += 1
     return dq, dk, dv
 

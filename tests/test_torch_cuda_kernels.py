@@ -142,9 +142,9 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 
 # The backward kernels are held to the same shares of max |plain|. dq of K3
-# (bulk reduce-adds in bf16, atomics in f32) and K5 (atomics) is summed in
-# an order that changes from run to run: in f32 that moves it by a few ulps
-# of the sum, far inside 2^-14. The rows cover K3 and K4 at the edges of
+# (bulk reduce-adds in bf16, atomics in f32) is summed in an order that
+# changes from run to run: in f32 that moves it by a few ulps of the sum,
+# far inside 2^-14. The rows cover K3 and K4 at the edges of
 # their 64- and 128-row tiles and K4's split dq pass.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -335,6 +335,110 @@ def test_cuda_single_kv_matches_plain(cuda, dtype, sq, sk):
     assert_matches_plain(out, flash_attention_reference(q, k, v))
     assert_matches_plain(out_lse, want)
     assert_matches_plain(lse, want_lse, rel=2.0 ** -14)
+
+
+# K6 on the dispatcher's (B, S, H, 64) views, at KV lengths across its route
+# (one 128-key tile, ragged tails, V resident up to 512 keys and streamed
+# above), two consumers (300 queries) and one (50), with and without the LSE
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq", [300, 50])
+@pytest.mark.parametrize("sk", [1, 64, 200, 256, 385, 512, 777, 1000, 1024])
+def test_cuda_single_kv_on_the_dispatchers_views(cuda, dtype, sq, sk):
+    from motion324_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(sk)
+    q, k, v = (_bhsd(g, cuda, dtype, 2, 3, n, True) for n in (sq, sk, sk))
+    assert single_kv_route(sk)
+    before = (flash_attention.single_kv_launches,
+              flash_attention.single_kv_lse_launches)
+    out, none = fa._forward(q, k, v, 0.125, with_lse=False)
+    out_lse, lse = fa._forward(q, k, v, 0.125, with_lse=True)
+    torch.cuda.synchronize()
+    assert none is None
+    assert (flash_attention.single_kv_launches,
+            flash_attention.single_kv_lse_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    want, want_lse = flash_attention_reference(q, k, v, scale=0.125,
+                                               with_lse=True)
+    for o in (out, out_lse):
+        assert o.shape == (2, 3, sq, 64) and o.transpose(1, 2).is_contiguous()
+        assert_matches_plain(o, want)
+    assert lse.shape == (6, sq)
+    assert_matches_plain(lse, want_lse, rel=REL_TOL[torch.float32])
+
+
+# The volume query's route: the dispatcher hands K6 transposed views and
+# transposes its heads-last output back, so the call launches K6 and nothing
+# else (no copy of q, k, v or the output)
+@pytest.mark.cuda
+def test_cuda_single_kv_launches_no_copy(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (torch.randn(1, n, 4, 64, generator=g, device=cuda)
+               .to(torch.bfloat16) for n in (2048, 512, 512))
+    assert select_route(2048, 512) == "flash" and single_kv_route(512)
+    multi_head_attention(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = multi_head_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.self_device_time_total > 0]
+    assert len(names) == 1 and "single_kv" in names[0], names
+    assert out.shape == (1, 2048, 4, 64) and out.is_contiguous()
+    assert_matches_plain(out, mha_reference(q, k, v))
+
+
+def _fused_qkv(g, cuda, dtype, b, h, sq, sk):
+    """q (pre-scaled by 1/8), k and v as strided views of one fused
+    (B, S, 3 H 64) projection, as the model hands them to K2 and K5."""
+    qkv = torch.randn(b, max(sq, sk), 3 * h * 64, generator=g,
+                      device=cuda).to(dtype)
+    q = (qkv[:, :sq, :h * 64] * 0.125).to(dtype)
+    return q, qkv[:, :sk, h * 64:2 * h * 64], qkv[:, :sk, 2 * h * 64:]
+
+
+# K5 at the training's local layers (24 images x 12 heads x 324^2) and a
+# ragged row, on fused-QKV views, dq/dk/dv written contiguous
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,sq,sk", [(24, 12, 324, 324), (2, 12, 200, 300)],
+                         ids=["local", "ragged"])
+def test_cuda_folded_bwd_on_fused_qkv_views(cuda, dtype, b, h, sq, sk):
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v = _fused_qkv(g, cuda, dtype, b, h, sq, sk)
+    o, lse = folded_attention_reference(q, k, v, heads=h, scale=1.0,
+                                        with_lse=True)
+    do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
+    before = folded_attention_bwd.launches
+    got = folded_attention_bwd(q, k, v, o, lse, do, heads=h)
+    torch.cuda.synchronize()
+    assert folded_attention_bwd.launches == before + 1
+    want = folded_attention_bwd_reference(q, k, v, o, lse, do, heads=h,
+                                          scale=1.0)
+    for a, w in zip(got, want):
+        assert a.is_contiguous() and a.shape == w.shape
+        assert_matches_plain(a, w)
+
+
+# K5 adds no atomics: a call repeats bit for bit, and image 0 of a B = 4
+# call has the bits of the same image alone
+@pytest.mark.cuda
+def test_cuda_folded_bwd_repeats_bit_for_bit(cuda):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    h = 12
+    q, k, v = _fused_qkv(g, cuda, torch.bfloat16, 4, h, 324, 324)
+    o, lse = folded_attention_reference(q, k, v, heads=h, scale=1.0,
+                                        with_lse=True)
+    do = torch.randn(o.shape, generator=g, device=cuda).to(torch.bfloat16)
+    four = folded_attention_bwd(q, k, v, o, lse, do, heads=h)
+    again = folded_attention_bwd(q, k, v, o, lse, do, heads=h)
+    one = folded_attention_bwd(q[:1], k[:1], v[:1], o[:1], lse[:1].clone(),
+                               do[:1], heads=h)
+    torch.cuda.synchronize()
+    for a, a2, b1 in zip(four, again, one):
+        assert torch.equal(a, a2)
+        assert torch.equal(a[:1], b1)
 
 
 # K7 against its plain version: the mask bits are computed in the same f32
