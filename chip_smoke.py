@@ -85,8 +85,10 @@ Phases, each of which raises on failure (exit code non-zero):
    mask against the f32 one; clips/s at B = 1 and B = 4 (decode chunk 6
    and 12); U2Net and ISNet ms per 224^2 frame.
 
-The kernel phase also holds K7 at the three turbo shapes, and K1, K2 and
-K6 at the paint UNet's call sites.
+The kernel phase also holds K7 at the three turbo shapes (on the paint
+path's positions and on random surface positions, with their pair and
+tile densities and K7's pre-pass bit for bit against its plain version),
+and K1, K2 and K6 at the paint UNet's call sites.
 
 Launches are attributed to call sites by one spy (``launch_spy``) in the
 pipeline, training and shape phases. The line before the last is a JSON
@@ -193,14 +195,17 @@ def time_ms(torch, fn, n: int = 10, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def bound(b, h, sq, sk, dtype_name, itemsize, backward=False, lse=False):
+def bound(b, h, sq, sk, dtype_name, itemsize, backward=False, lse=False,
+          density=1.0):
     """Least time for attention over (b, h, sq, sk, 64): the forward's
-    4 b h sq sk 64 flops (2.5 times that for the backward) at the peak rate
-    of the dtype, against its bytes at the memory rate, each input read once
-    and each output written once: q, k, v, o (+ f32 lse) forward; q, k, v,
-    o, dO, f32 lse read and dq, dk, dv written backward (rows of length Sq:
-    q, o, dO, dq; of length Sk: k, v, dk, dv)."""
-    flops = 4.0 * b * h * sq * sk * 64 * (2.5 if backward else 1.0)
+    4 b h sq sk 64 flops (2.5 times that for the backward; times
+    ``density`` where only that share of the (query, key) tiles is
+    computed) at the peak rate of the dtype, against its bytes at the
+    memory rate, each input read once and each output written once: q, k,
+    v, o (+ f32 lse) forward; q, k, v, o, dO, f32 lse read and dq, dk, dv
+    written backward (rows of length Sq: q, o, dO, dq; of length Sk: k, v,
+    dk, dv)."""
+    flops = 4.0 * b * h * sq * sk * 64 * (2.5 if backward else 1.0) * density
     rows = (4 * sq + 4 * sk) if backward else (2 * sq + 2 * sk)
     nbytes = float(itemsize) * b * h * 64 * rows
     if lse or backward:
@@ -208,6 +213,28 @@ def bound(b, h, sq, sk, dtype_name, itemsize, backward=False, lse=False):
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def device_ms(torch, fn, n: int = 5) -> dict:
+    """Device milliseconds per call of ``fn`` by kernel, from torch.profiler
+    over ``n`` calls after a warm-up: K7's two kernels under "mask_bits" and
+    "k7_masked_flash", any other under its name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = next((w for w in ("mask_bits", "k7_masked_flash") if w in e.key),
+                   e.key)
+        out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3 / n
+    return out
 
 
 def rel_err(out, want):
@@ -234,7 +261,7 @@ def phase_kernels(torch, seed: int) -> list[dict]:
     # dispatcher now sends to K6). The shape path: K1 in the DiT (2 x 16
     # heads, 1 369 condition + 512 latent tokens) and the DINOv2-giant
     # conditioner (24 heads, 1 370 tokens), K2 in the ShapeVAE decode (16
-    # heads, 512 latents: two resident segments of 384 + 128 keys), K6 in
+    # heads, 512 latents), K6 in
     # the volume query (16 heads, 8 192 points x 512 latents; once more on
     # the (B, S, H, 64) views the dispatcher hands it, "_bshd") and at the
     # edges of its route with ragged query counts.
@@ -249,6 +276,8 @@ def phase_kernels(torch, seed: int) -> list[dict]:
         ("folded_fwd", "local", 12, 12, 324, 324, True),
         ("folded_fwd", "dino", 12, 12, 257, 257, True),
         ("folded_fwd", "ragged", 2, 12, 200, 1000, False),
+        # one query tile over 4 096 keys: K2's keys split (no call site)
+        ("folded_fwd", "split", 2, 12, 64, 4096, False),
         ("folded_fwd", "vae", 1, 16, 512, 512, True),
         ("flash_single_kv", "volume_query", 1, 16, 8192, 512, True),
         ("flash_single_kv", "volume_query_bshd", 1, 16, 8192, 512, False),
@@ -324,11 +353,14 @@ def phase_kernels(torch, seed: int) -> list[dict]:
             plain_ms = time_ms(torch, plain, n=3, reps=3)
             lib_ms = time_ms(torch, lib)
             bound_ms, bound_by = bound(b, h, sq, sk, dname, q.element_size())
+            # K2's rows are bound by host time: its device time beside it
+            dev = (f" (device {sum(device_ms(torch, run).values()):.4f} ms)"
+                   if kname == "folded_fwd" and dname == "bfloat16" else "")
             log(f"  {kname:15s} {case:13s} {dname:8s} B{b} H{h} Sq{sq} Sk{sk}"
                 f"{split_note(kname, sq, sk, dname)}: "
                 f"max|d| {err:.2e} (tol {tol:.2e} = 2^{np.log2(REL_TOL[dname]):.0f}"
                 f" x max|plain| {top:.3f}; mean|plain| {mean:.4f}; last KV tile "
-                f"dropped {miss:.2e}) kernel {ms:.4f} ms "
+                f"dropped {miss:.2e}) kernel {ms:.4f} ms{dev} "
                 f"plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound "
                 f"{bound_ms:.4f} ms ({bound_by})")
             rows.append(dict(kernel=kname, case=case, dtype=dname, main=main,
@@ -339,13 +371,42 @@ def phase_kernels(torch, seed: int) -> list[dict]:
     torch.cuda.empty_cache()
     # K1's slices do not depend on the batch, and a call repeats
     slice_bits(torch, seed, kernels=("K1",), strict=True)
+    kernel_digests(torch)
     return rows
+
+
+def kernel_digests(torch) -> None:
+    """Print a digest of K1's and K9's bf16 out and LSE at fixed inputs (a
+    split and an unsplit call each, with and without the LSE): a change
+    that must leave their bits alone prints the same digests as its
+    parent. Uses only the wrappers' ``_forward``, so it can be run against
+    an older checkout's package."""
+    import hashlib
+    from motion324_tpu_torch.ops import flash_attention as fa
+    from motion324_tpu_torch.ops import short_attention as sa
+    gen = torch.Generator(device="cuda").manual_seed(123)
+    for name, mod, (b, h, sq, sk) in (
+            ("K1 64x16384", fa, (1, 12, 64, 16384)),
+            ("K1 1000x1300", fa, (1, 12, 1000, 1300)),
+            ("K9 324x324", sa, (2, 12, 324, 324)),
+            ("K9 64x4096", sa, (1, 12, 64, 4096))):
+        q, k, v = (torch.randn(b, h, n, 64, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for n in (sq, sk, sk))
+        out, lse = mod._forward((q * 0.125).to(torch.bfloat16), k, v, 1.0,
+                                with_lse=True)
+        digest = hashlib.sha256()
+        for t in (out, lse, mod._forward(q, k, v, 0.125, with_lse=False)[0]):
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
+        log(f"  digest {name}: sha256 of out, lse and the LSE-free out "
+            f"{digest.hexdigest()[:16]}")
 
 
 def split_note(kname: str, sq: int, sk: int, dname: str) -> str:
     """`` n_split N`` for a K1 row (bf16 calls split by split_count; f32
     never) and a K3 / K4 row (K4's bf16 dq pass splits by the same rule, K3
-    never); for a K9 backward or K5 row its plan's (short_split_count; the
+    never); for a K9 forward or K2 row short_split_count's (f32 never);
+    for a K9 backward or K5 row its plan's (short_split_count; the
     dk/dv pass by short_dkv_split_count; K5 takes K9's plan over its B*H
     slices); for a K6 row its grid (single_kv_plan at B*H 16: consumers,
     query tiles a block, V resident); else nothing."""
@@ -359,7 +420,7 @@ def split_note(kname: str, sq: int, sk: int, dname: str) -> str:
         return f" n_split {split_count(sq, sk) if dname == 'bfloat16' else 1}"
     if kname.startswith("flash_bwd"):
         return f" n_split {bwd_plan(1, sq, sk, getattr(torch, dname))[1]}"
-    if kname.startswith("short_fwd"):
+    if kname.startswith(("short_fwd", "folded_fwd")):
         return f" n_split {short_split_count(sq, sk) if dname == 'bfloat16' else 1}"
     if kname in ("short_bwd", "folded_bwd"):
         n, m, _, _ = short_bwd_plan(1, sq, sk, getattr(torch, dname))
@@ -379,6 +440,7 @@ GRAD_CASES = [
     ("flash_fwd_lse", "global", 2, 12, 3888, 3888, True),
     ("flash_fwd_lse", "shape_encoder", 2, 12, 64, 4096, True),
     ("folded_fwd_lse", "local", 24, 12, 324, 324, True),
+    ("folded_fwd_lse", "split", 2, 12, 64, 4096, False),
     ("flash_bwd_fused", "global", 2, 12, 3888, 3888, True),
     ("flash_bwd_fused", "shape_encoder", 2, 12, 64, 4096, True),
     ("flash_bwd_fused", "ragged", 1, 4, 1000, 1100, False),
@@ -552,13 +614,7 @@ def profile_clip(torch, run) -> None:
         return
     groups: dict[str, float] = {}
     for e in kernels:
-        n = e.key.lower()
-        g = ("K1 flash_fwd" if "flash_fwd" in n else
-             "K2 folded_fwd" if "folded_fwd" in n else
-             "matmul" if any(w in n for w in ("gemm", "xmma", "cutlass",
-                                              "nvjet"))
-             else "memcpy/memset" if "memcpy" in n or "memset" in n
-             else "other")
+        g = kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     log(f"  profile: wall {wall_s * 1e3:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / (wall_s * 1e3):.1f}% busy, "
@@ -860,9 +916,12 @@ def phase_pipeline(torch, seed: int, repo: str) -> dict:
 def kernel_group(name: str) -> str:
     """The kernel group of a CUDA kernel's name in a profile. The Hopper
     attention kernels carry their library's tag as a template argument
-    (k1_flash_fwd, k6_single_kv, k9_short_fwd, k34_flash_bwd,
-    k5_folded_bwd, k9_short_bwd)."""
+    (k1_flash_fwd, k2_folded_fwd, k6_single_kv, k7_masked_flash,
+    k9_short_fwd, k34_flash_bwd, k5_folded_bwd, k9_short_bwd); K7's
+    pre-pass is mask_bits, its f32 kernel masked_fwd_f32."""
     n = name.lower()
+    if any(w in n for w in ("k7_masked_flash", "mask_bits", "masked_fwd_f32")):
+        return "K7 masked_flash"
     if "folded_bwd" in n:
         return "K5 folded_bwd"
     if "short_fwd" in n:
@@ -885,8 +944,6 @@ def kernel_group(name: str) -> str:
         return "K3 flash_bwd fused"
     if "bwd_dq_" in n or "bwd_dkv_f32<false" in n:
         return "K4 flash_bwd two-pass"
-    if "masked_fwd" in n:
-        return "K7 masked_flash"
     if "raster_kernel" in n:
         return "K8 rasterize"
     if any(w in n for w in ("gemm", "xmma", "cutlass", "nvjet")):
@@ -1641,57 +1698,153 @@ def surface_positions(torch, gen, b: int, s: int):
     return p
 
 
+def paint_positions(torch) -> dict:
+    """The turbo masks as PaintPipeline hands them to K7 for the paint
+    phase's deformed sphere: its six views rendered at PAINT_RES from the
+    unwrapped mesh, pooled by MultiviewDiffusion.turbo_masks (view by view,
+    in raster order over the g x g cells; background and low-support cells
+    at the origin), keyed by token count: VoxelMask ((1, S, 3), radius)."""
+    from motion324_tpu_torch.hy3dgen.camera import DEFAULT_VIEWS
+    from motion324_tpu_torch.hy3dgen.paint_diffusion import MultiviewDiffusion
+    from motion324_tpu_torch.hy3dgen.paint_pipeline import PaintPipeline
+    from motion324_tpu_torch.hy3dgen.uv_unwrap import unwrap_uv
+    pipe = PaintPipeline(multiview_model=lambda *a: None, resolution=PAINT_RES,
+                         texture_size=TEXTURE_SIZE, delight=False,
+                         device="cuda")
+    renderer = pipe.renderer(unwrap_uv(deformed_sphere(), TEXTURE_SIZE)[0])
+    renders = [renderer.render_view(elev, azim)
+               for azim, elev, _ in DEFAULT_VIEWS]
+    return MultiviewDiffusion.turbo_masks(renders)
+
+
 def phase_masked_kernels(torch, seed: int) -> list[dict]:
-    """K7 against its plain version at the turbo shapes, bf16 and f32,
-    within REL_TOL of max |plain|, a plain version that drops the last 64
-    keys outside it; timed beside torch's scaled_dot_product_attention with
-    the dense boolean mask and the dense work's bound."""
+    """K7 against its plain version at the turbo shapes, bf16 and f32, on
+    two sets of positions: the paint path's (paint_positions; the main
+    path's rows) and surface_positions (random order, "_surface" rows).
+    q, k and v are (B, S, H, 64) views, as the UNet hands them over. Each
+    row prints the pair density and the tile density at 64 x 64 and 128 x
+    128 tiles (masked_tile_list_reference); in bf16 the pre-pass's bits
+    and tile flags equal that plain version bit for bit, and the profiler
+    splits a call's device time into pre-pass and main loop. The output is
+    held within REL_TOL of max |plain|, a plain version that drops the last
+    64 keys outside it; the rows of the tokens at the origin (background
+    and low-support cells, one clique; an eighth of the random ones), whose
+    outputs average over many keys and so are small, are held again within
+    REL_TOL of their own max |plain|, a plain version that drops the 64
+    clique keys in the middle of the clique outside it. Timed beside
+    torch's scaled_dot_product_attention with the dense boolean mask. The
+    row's bound is over the kept pairs (the products the function needs);
+    the dense work's bound and the bound over the visited 128 x 128 tiles
+    are printed beside it. Its launches (the kernels line) count calls:
+    each bf16 call launches the pre-pass and the main loop."""
     import torch.nn.functional as F
     from motion324_tpu_torch.ops import masked_attention as ma
     from motion324_tpu_torch.ops.flash_attention import scale_in_dtype
 
+    paint = paint_positions(torch)
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         for case, b, h, s, g in MASKED_CASES:
-            q, k, v = (torch.randn(b, h, s, 64, generator=gen, device="cuda")
-                       .to(dtype) for _ in range(3))
-            pos = surface_positions(torch, gen, b, s)
-            r = 1.73 / g
-            run = lambda: ma._forward(q, k, v, pos, r, scale_in_dtype(q, None))
-            plain = lambda: ma.masked_attention_reference(q, k, v, pos, radius=r)
-            dense = ma.voxel_keep(pos, pos, r)[:, None]
-            lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense)
-            out, want = run(), plain()
-            torch.cuda.synchronize()
-            err, top = rel_err(out, want)
-            tol = REL_TOL[dname] * top
-            if not err <= tol:
-                raise AssertionError(f"masked_flash/{case} {dname}: max |kernel - "
-                                     f"plain| {err:.3e} > {tol:.3e}")
-            miss = rel_err(ma.masked_attention_reference(
-                q, k[:, :, :-64], v[:, :, :-64], pos, radius=r,
-                kv_positions=pos[:, :-64]), want)[0]
-            if not miss > tol:
-                raise AssertionError(f"masked_flash/{case} {dname}: the tolerance "
-                                     f"{tol:.3e} misses a dropped KV tile "
-                                     f"({miss:.3e})")
-            ms = time_ms(torch, run)
-            plain_ms = time_ms(torch, plain, n=3, reps=3)
-            lib_ms = time_ms(torch, lib)
-            bound_ms, bound_by = bound(b, h, s, s, dname, q.element_size())
-            log(f"  masked_flash    {case:13s} {dname:8s} B{b} H{h} S{s} r 1.73/{g}"
-                f" (pairs kept {dense.float().mean().item():.4f}): max|d| "
-                f"{err:.2e} (tol {tol:.2e}; last KV tile dropped {miss:.2e}) "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa+mask "
-                f"{lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})")
-            rows.append(dict(kernel="masked_flash", case=case, dtype=dname,
-                             main=True, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bound_ms, bound_by=bound_by))
-            del q, k, v, out, want, dense
-            torch.cuda.empty_cache()
+            for order in ("paint", "surface"):
+                q, k, v = (torch.randn(b, s, h, 64, generator=gen, device="cuda")
+                           .to(dtype).transpose(1, 2) for _ in range(3))
+                r = 1.73 / g
+                if order == "paint":
+                    pos = paint[s].positions
+                    assert pos.shape == (b, s, 3) and paint[s].radius == r
+                else:
+                    pos = surface_positions(torch, gen, b, s)
+                run = lambda: ma._forward(q, k, v, pos, r, scale_in_dtype(q, None))
+                plain = lambda: ma.masked_attention_reference(q, k, v, pos,
+                                                              radius=r)
+                dense = ma.voxel_keep(pos, pos, r)[:, None]
+                lib = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                             attn_mask=dense)
+                bits, tiles = ma.masked_tile_list_reference(pos, r)
+                tile64 = ma.masked_tile_list_reference(pos, r, 64)[1]
+                density = (dense.float().mean().item(),
+                           tile64.float().mean().item(),
+                           tiles.float().mean().item())
+                pre = ""
+                if dtype == torch.bfloat16:
+                    got = ma.masked_tile_list(pos, r)
+                    if not (torch.equal(got[0], bits)
+                            and torch.equal(got[1], tiles)):
+                        raise AssertionError(f"masked_flash/{case} {order}: the "
+                                             f"pre-pass's bits or tile flags "
+                                             f"differ from the plain version")
+                    dev = device_ms(torch, run)
+                    pre = (f" (device: pre-pass {dev.get('mask_bits', 0.0):.4f} "
+                           f"ms, main loop {dev.get('k7_masked_flash', 0.0):.4f}"
+                           f" ms; bits and flags exact)")
+                del bits, tiles, tile64
+                out, want = run(), plain()
+                torch.cuda.synchronize()
+                err, top = rel_err(out, want)
+                tol = REL_TOL[dname] * top
+                if not err <= tol:
+                    raise AssertionError(f"masked_flash/{case} {order} {dname}: "
+                                         f"max |kernel - plain| {err:.3e} > "
+                                         f"{tol:.3e}")
+                miss = rel_err(ma.masked_attention_reference(
+                    q, k[:, :, :-64], v[:, :, :-64], pos, radius=r,
+                    kv_positions=pos[:, :-64]), want)[0]
+                if not miss > tol:
+                    raise AssertionError(f"masked_flash/{case} {order} {dname}: "
+                                         f"the tolerance {tol:.3e} misses a "
+                                         f"dropped KV tile ({miss:.3e})")
+                # the clique's rows alone, and the clique's middle keys dropped
+                clique = (pos[0] == 0).all(-1).nonzero()[:, 0]
+                n_drop = min(64, clique.numel() // 2)
+                mid = clique.numel() // 2 - n_drop // 2
+                kept = torch.ones(s, dtype=torch.bool, device="cuda")
+                kept[clique[mid:mid + n_drop]] = False
+                err_c, top_c = rel_err(out[:, :, clique], want[:, :, clique])
+                tol_c = REL_TOL[dname] * top_c
+                if not err_c <= tol_c:
+                    raise AssertionError(f"masked_flash/{case} {order} {dname}: "
+                                         f"on the {clique.numel()} clique rows "
+                                         f"max |kernel - plain| {err_c:.3e} > "
+                                         f"{tol_c:.3e}")
+                miss_c = rel_err(ma.masked_attention_reference(
+                    q, k[:, :, kept], v[:, :, kept], pos, radius=r,
+                    kv_positions=pos[:, kept])[:, :, clique],
+                    want[:, :, clique])[0]
+                if not miss_c > tol_c:
+                    raise AssertionError(f"masked_flash/{case} {order} {dname}: "
+                                         f"the clique rows' tolerance "
+                                         f"{tol_c:.3e} misses {n_drop} dropped "
+                                         f"clique keys ({miss_c:.3e})")
+                mean = want.float().abs().mean().item()
+                ms = time_ms(torch, run)
+                plain_ms = time_ms(torch, plain, n=3, reps=3)
+                lib_ms = time_ms(torch, lib)
+                dense_ms = bound(b, h, s, s, dname, q.element_size())[0]
+                visited_ms = bound(b, h, s, s, dname, q.element_size(),
+                                   density=density[2])[0]
+                bound_ms, bound_by = bound(b, h, s, s, dname, q.element_size(),
+                                           density=density[0])
+                name = case if order == "paint" else f"{case}_surface"
+                log(f"  masked_flash    {name:21s} {dname:8s} B{b} H{h} S{s} r "
+                    f"1.73/{g} (pairs kept {density[0]:.4f}, tiles visited "
+                    f"{density[1]:.4f} at 64^2, {density[2]:.4f} at 128^2):"
+                    f" max|d| {err:.2e} (tol {tol:.2e}; max|plain| {top:.3f}, "
+                    f"mean|plain| {mean:.4f}; last KV tile dropped "
+                    f"{miss:.2e}); {clique.numel()} clique rows max|d| "
+                    f"{err_c:.2e} (tol {tol_c:.2e}; {n_drop} clique keys "
+                    f"dropped {miss_c:.2e}) kernel {ms:.4f} ms{pre} plain "
+                    f"{plain_ms:.4f} ms sdpa+mask {lib_ms:.4f} ms bound over "
+                    f"the kept pairs {bound_ms:.4f} ms ({bound_by}), over the "
+                    f"visited tiles {visited_ms:.4f} ms, dense {dense_ms:.4f} "
+                    f"ms")
+                rows.append(dict(kernel="masked_flash", case=name, dtype=dname,
+                                 main=order == "paint", max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by))
+                del q, k, v, out, want, dense, kept
+                torch.cuda.empty_cache()
     return rows
 
 

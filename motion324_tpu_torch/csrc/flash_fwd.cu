@@ -18,7 +18,8 @@
 // of hopper_fwd.cuh, with the keys of calls with few query tiles split
 // across blocks and added in split order (split_count in
 // ops/flash_attention.py), instantiated here under K1's own tag. The K9
-// forward (short_fwd.cu) instantiates the same kernel under its own.
+// forward (short_fwd.cu), K2 (folded_fwd.cu) and K7 (masked_flash.cu)
+// instantiate the same kernel under their own.
 
 #include "hopper_fwd.cuh"
 
@@ -27,9 +28,10 @@ struct k1_flash_fwd {};   // K1's kernels in a profile: fwd_*<..., k1_flash_fwd>
 }  // namespace
 
 // The contract of m324::fwd::fwd_entry (hopper_fwd.cuh): q, k, v, o through
-// (batch, head, row) strides, the optional compact f32 LSE, bf16 split-KV
-// with its workspace and tickets; returns 0, a CUDA error, or 900 / 901 /
-// 902 / 1000 + the driver's tensor-map error.
+// (batch, head, row) strides, the optional f32 LSE through strides[12..14]
+// (the wrapper passes the compact (b*h, sq)), bf16 split-KV with its
+// workspace and tickets; returns 0, a CUDA error, or 900 / 901 / 902 /
+// 1000 + the tensor-map encoder's error.
 extern "C" int m324_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, float* lse, float* part_o,
                               float* part_lse, int* tickets, int n_tickets,

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the attention kernels of
-// hopper_fwd.cuh (K1, the K9 forward) and hopper_bwd.cuh (K3 / K4, the K9
-// backward): mbarriers, TMA loads and bulk copies, the bulk f32
+// hopper_fwd.cuh (K1, K2, K7, the K9 forward) and hopper_bwd.cuh (K3 / K4,
+// K5, the K9 backward): mbarriers, TMA loads and bulk copies, the bulk f32
 // reduce-add, wgmma on bf16 tiles of 64-element (128-byte) rows in the
 // 128-byte swizzle, and the host-side tensor maps (cuTensorMapEncodeTiled
 // through dlopen, so the libraries need no -lcuda).

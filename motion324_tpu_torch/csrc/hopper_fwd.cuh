@@ -1,11 +1,19 @@
-// The Hopper (sm_90a) attention forward shared by K1 (flash_fwd.cu) and the
-// K9 forward (short_fwd.cu): exact attention over (B, H, S, 64) with an
-// online softmax over KV tiles, the logit scale folded into q in q's dtype,
-// padded keys masked to -1e30, m / l / acc in f32, P rounded to v's dtype
-// before P V and the output in q's dtype; optionally the f32 natural-log
-// log-sum-exp of each row, 2-D (B*H, Sq), the residual the backward passes
-// read. Each library instantiates the kernels with a tag type of its own
-// (fwd_entry<Tag>), so that a profile tells K1's launches from K9's.
+// The Hopper (sm_90a) attention forward shared by K1 (flash_fwd.cu), the
+// K9 forward (short_fwd.cu), K2 (folded_fwd.cu) and K7 (masked_flash.cu):
+// exact attention over (B, H, S, 64) with an online softmax over KV tiles,
+// the logit scale folded into q in q's dtype, padded keys masked to -1e30,
+// m / l / acc in f32, P rounded to v's dtype before P V and the output in
+// q's dtype; optionally the f32 natural-log log-sum-exp of each row through
+// (batch, head, row) strides (compact (B*H, Sq) for K1 and K9, (B, Sq, H)
+// for K2), the residual the backward passes read. Each library instantiates
+// the kernels with a tag type of its own (fwd_entry<Tag>), so that a
+// profile tells their launches apart.
+//
+// The tag also sets the tile policy. A tag derived from VoxelTiles (K7)
+// visits only the key tiles that its 128-row query tile's flags list (a
+// pre-pass wrote them with the mask bits), in ascending order, and sets
+// each logit whose mask bit is clear to -1e30 before the online softmax;
+// every other tag visits every key tile of its split and masks nothing.
 //
 // What the design does (bf16):
 // - Warp specialisation: warpgroup 0 is the producer, one thread of which
@@ -40,6 +48,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "hopper.cuh"   // mbarriers, TMA, wgmma, tensor maps
 
 namespace m324 {
@@ -49,30 +59,58 @@ constexpr int kBlockN = 128;                    // keys per K/V tile
 constexpr int kStages = 3;                      // K/V tiles in flight
 constexpr int kTileBytes = kBlockN * kD * 2;    // one K or V tile: 16 KB
 constexpr int kMaxSplits = 16;                  // the wrapper's rule keeps to it
+constexpr int kMaskTile = 128;                  // rows and keys of a mask flag
+
+// The tile policy: a tag derived from VoxelTiles visits the listed key
+// tiles only and applies the mask bits (K7); any other tag is dense.
+struct VoxelTiles {};
+template <typename Tag>
+constexpr bool kTileMasked = std::is_base_of<VoxelTiles, Tag>::value;
 
 // dynamic shared memory of a block with `consumers` consumer warpgroups,
 // as byte offsets from a 1024-byte-aligned base (the 128-byte swizzle
-// repeats every 8 rows of 128 bytes)
-template <int kConsumers>
+// repeats every 8 rows of 128 bytes); a masked block adds its list of key
+// tiles (a count, then one int per key tile: launch_bf16 adds 4 q_tiles
+// bytes to kAlloc)
+template <int kConsumers, bool kMasked = false>
 struct Layout {
   static constexpr int kQBytes = kConsumers * 64 * kD * 2;
   static constexpr int kK = kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBar = kV + kStages * kTileBytes;  // q, full[], empty[]
   static constexpr int kFlag = kBar + 8 * (1 + 2 * kStages);   // last split?
-  static constexpr int kAlloc = kFlag + 8 + 1024;
+  static constexpr int kList = kFlag + 8;
+  static constexpr int kAlloc = kList + (kMasked ? 8 : 0) + 1024;
 };
 
 struct FwdArgs {
   bf16* o;            // (B, H, Sq, 64) through o_bs / o_hs / o_rs
-  float* lse;         // (B*H, Sq) or null
+  float* lse;         // (B, H, Sq) through l_bs / l_hs / l_rs, or null
   float* part_o;      // (n_split, B*H, Sq, 64) f32 when n_split > 1
   float* part_lse;    // (n_split, B*H, Sq) f32 when n_split > 1
   int* tickets;       // one zeroed int per (query tile, slice) when n_split > 1
   long long o_bs, o_hs, o_rs;
+  long long l_bs, l_hs, l_rs;
   int h, bh, sq, sk, keys_per_split, n_split;
   float scale;
 };
+
+// A masked call's mask, written by its pre-pass (masked_flash.cu) for S
+// tokens in q_tiles = ceil(S / 128) tiles of 128: bit e of word w of row r
+// of batch b (bits[(b * q_tiles * 128 + r) * words + w]) is set where query
+// r keeps key 32 w + e, words = 4 * q_tiles (rows and keys past S clear);
+// flags[(b * q_tiles + qt) * q_tiles + kt] is 1 where the 128 x 128 tile
+// (qt, kt) holds a kept pair.
+struct TileMask {
+  const uint32_t* bits;
+  const unsigned char* flags;
+  int words, q_tiles;
+};
+struct MaskedFwdArgs : FwdArgs {
+  TileMask mask;
+};
+template <typename Tag>
+using FwdArgsOf = std::conditional_t<kTileMasked<Tag>, MaskedFwdArgs, FwdArgs>;
 
 // One block: a query tile of 64 * kConsumers rows of one (batch, head) over
 // one split of the keys. Warpgroup 0 produces, warpgroups 1.. consume.
@@ -82,8 +120,9 @@ template <int kConsumers, typename Tag>
 __global__ void __launch_bounds__((kConsumers + 1) * 128, kConsumers == 1 ? 2 : 1)
 fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv, const FwdArgs a) {
-  using L = Layout<kConsumers>;
+               const __grid_constant__ CUtensorMap tv, const FwdArgsOf<Tag> a) {
+  constexpr bool kMasked = kTileMasked<Tag>;
+  using L = Layout<kConsumers, kMasked>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -97,7 +136,8 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
   const int split = blockIdx.z;
   const int kv_begin = split * a.keys_per_split;
   const int kv_end = min(a.sk, kv_begin + a.keys_per_split);
-  const int n_tiles = (kv_end - kv_begin + kBlockN - 1) / kBlockN;
+  // a masked block (never split) visits the key tiles of its list
+  const int* list = reinterpret_cast<const int*>(smem + L::kList + 8);
 
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
@@ -107,7 +147,26 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (kMasked) {
+    // warp 1 compacts the query tile's flags into the list, in order
+    if (threadIdx.x >= 32 && threadIdx.x < 64) {
+      const int lane = threadIdx.x & 31, nk = a.mask.q_tiles;
+      const unsigned char* f =
+          a.mask.flags + ((long long)batch * nk + q0 / kMaskTile) * nk;
+      int* out = reinterpret_cast<int*>(smem + L::kList + 8);
+      int n = 0;
+      for (int kt = 0; kt < nk; kt += 32) {
+        const bool keep = kt + lane < nk && f[kt + lane] != 0;
+        const unsigned m = __ballot_sync(0xffffffffu, keep);
+        if (keep) out[n + __popc(m & ((1u << lane) - 1))] = kt + lane;
+        n += __popc(m);
+      }
+      if (lane == 0) *reinterpret_cast<int*>(smem + L::kList) = n;
+    }
+  }
   __syncthreads();
+  const int n_tiles = kMasked ? *reinterpret_cast<const int*>(smem + L::kList)
+                              : (kv_end - kv_begin + kBlockN - 1) / kBlockN;
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
@@ -121,7 +180,7 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
         mbar_wait(empty_bar + 8 * stage, ((it / kStages) & 1) ^ 1);
         const uint32_t bar = full_bar + 8 * stage;
         mbar_expect_tx(bar, 2 * kTileBytes);
-        const int kv0 = kv_begin + it * kBlockN;
+        const int kv0 = kMasked ? list[it] * kBlockN : kv_begin + it * kBlockN;
         tma_load(base + L::kK + stage * kTileBytes, &tk, bar, kv0, head, batch);
         tma_load(base + L::kV + stage * kTileBytes, &tv, bar, kv0, head, batch);
       }
@@ -170,6 +229,7 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
     mbar_wait(full_bar + 8 * stage, (it / kStages) & 1);
     const uint64_t k_desc = sw128_desc(base + L::kK + stage * kTileBytes);
     const uint64_t v_desc = sw128_desc(base + L::kV + stage * kTileBytes);
+    const int kv0 = kMasked ? list[it] * kBlockN : kv_begin + it * kBlockN;
 
     // S = Q K^T over the head dim, 4 steps of 16 (32 bytes: +2 in the
     // descriptor's address field)
@@ -179,12 +239,43 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
     for (int ks = 0; ks < 4; ++ks)
       wgmma_ss_n128(s, q_desc + 2 * ks, k_desc + 2 * ks, ks > 0);
     wgmma_commit();
+    uint4 bits0, bits1;   // the tile's mask words of rows g and g + 8
+    if constexpr (kMasked) {
+      // loaded while the product runs (L2: the pre-pass just wrote them)
+      const long long row = (long long)batch * a.mask.q_tiles * kMaskTile + q0 +
+                            c * 64 + warp * 16 + g;
+      const uint4* b0 = reinterpret_cast<const uint4*>(
+          a.mask.bits + row * a.mask.words) + kv0 / kBlockN;
+      bits0 = __ldg(b0);
+      bits1 = __ldg(b0 + 2 * a.mask.words);   // 8 rows on
+    }
     wgmma_wait_all();
     fence_regs(s);
 
     // this thread holds keys 8j + 2 tq4 (+1) of rows g (s[4j], s[4j+1]) and
     // g + 8 (s[4j+2], s[4j+3]), j = 0..15
-    const int nvalid = kv_end - (kv_begin + it * kBlockN);
+    if constexpr (kMasked) {
+      // key 8j + 2 tq4 (+1) is bit 8 (j % 4) + 2 tq4 (+1) of word j / 4;
+      // a tile that keeps all of this thread's keys needs no masking
+      const int sh = 2 * tq4;
+      const uint32_t w0[4] = {bits0.x >> sh, bits0.y >> sh, bits0.z >> sh,
+                              bits0.w >> sh};
+      const uint32_t w1[4] = {bits1.x >> sh, bits1.y >> sh, bits1.z >> sh,
+                              bits1.w >> sh};
+      if ((w0[0] & w0[1] & w0[2] & w0[3] & w1[0] & w1[1] & w1[2] & w1[3] &
+           0x03030303u) != 0x03030303u) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const uint32_t x0 = w0[j >> 2] >> (8 * (j & 3));
+          const uint32_t x1 = w1[j >> 2] >> (8 * (j & 3));
+          if (!(x0 & 1u)) s[4 * j] = kNegInf;
+          if (!(x0 & 2u)) s[4 * j + 1] = kNegInf;
+          if (!(x1 & 1u)) s[4 * j + 2] = kNegInf;
+          if (!(x1 & 2u)) s[4 * j + 3] = kNegInf;
+        }
+      }
+    }
+    const int nvalid = kv_end - kv0;
     if (nvalid < kBlockN) {
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
@@ -208,7 +299,14 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
     const float alpha1 = fast_exp2((m1 - mx1) * kLog2e);
     m0 = mx0;
     m1 = mx1;
-    const float c0 = mx0 * kLog2e, c1 = mx1 * kLog2e;
+    float c0 = mx0 * kLog2e, c1 = mx1 * kLog2e;
+    if constexpr (kMasked) {
+      // a row with no kept key so far: its -1e30 logits get p = 0 (with
+      // c = -1e30 log2(e), rounded, fmaf would leave exp2 of the rounding
+      // error: 0 or inf)
+      if (mx0 == kNegInf) c0 = 0.f;
+      if (mx1 == kNegInf) c1 = 0.f;
+    }
     float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -263,8 +361,9 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
   if (a.n_split == 1) {
     bf16* ob = a.o + batch * a.o_bs + head * a.o_hs;
     if (a.lse != nullptr && tq4 == 0) {
-      if (r0 < a.sq) a.lse[(long long)bh * a.sq + r0] = lse0;
-      if (r1 < a.sq) a.lse[(long long)bh * a.sq + r1] = lse1;
+      float* lb = a.lse + batch * a.l_bs + head * a.l_hs;
+      if (r0 < a.sq) lb[r0 * a.l_rs] = lse0;
+      if (r1 < a.sq) lb[r1 * a.l_rs] = lse1;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -328,7 +427,8 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int i = 0; i < kMaxSplits; ++i)
           w_s[tc * kMaxSplits + i] = i < a.n_split ? expf(l[i] - lse) : 0.f;
-        if (a.lse != nullptr) a.lse[row0 + tc] = lse;
+        if (a.lse != nullptr)
+          a.lse[batch * a.l_bs + head * a.l_hs + (q0 + tc) * a.l_rs] = lse;
       }
       asm volatile("bar.sync 3, %0;\n" :: "r"(kConsumers * 128) : "memory");
       bf16* ob = a.o + batch * a.o_bs + head * a.o_hs;
@@ -364,35 +464,39 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         float* __restrict__ lse, long long q_bs, long long q_hs, long long q_rs,
         long long k_bs, long long k_hs, long long k_rs, long long v_bs,
         long long v_hs, long long v_rs, long long o_bs, long long o_hs,
-        long long o_rs, int h, int sq, int sk, float scale) {
+        long long o_rs, long long l_bs, long long l_hs, long long l_rs, int h,
+        int sq, int sk, float scale) {
   __shared__ float smem[kScalarSmemFloats];
   const int bh = blockIdx.y, b = bh / h, hh = bh % h;
   scalar_attend(q + b * q_bs + hh * q_hs, k + b * k_bs + hh * k_hs,
                 v + b * v_bs + hh * v_hs, o + b * o_bs + hh * o_hs,
-                lse == nullptr ? nullptr : lse + (long long)bh * sq, q_rs, k_rs,
-                v_rs, o_rs, 1, sq, sk, blockIdx.x * kScalarQ, scale, smem);
+                lse == nullptr ? nullptr : lse + b * l_bs + hh * l_hs, q_rs,
+                k_rs, v_rs, o_rs, l_rs, sq, sk, blockIdx.x * kScalarQ, scale,
+                smem);
 }
 
 template <int kConsumers, typename Tag>
 int launch_bf16(const void* q, const void* k, const void* v, int b, int h,
-                int sq, int sk, const long long* st, const FwdArgs& a,
+                int sq, int sk, const long long* st, const FwdArgsOf<Tag>& a,
                 cudaStream_t s) {
-  using L = Layout<kConsumers>;
+  using L = Layout<kConsumers, kTileMasked<Tag>>;
   CUtensorMap tq, tk, tv;
   int rc = make_map(&tq, q, sq, h, b, st[0], st[1], st[2], 64 * kConsumers);
   if (rc == 0) rc = make_map(&tk, k, sk, h, b, st[3], st[4], st[5], kBlockN);
   if (rc == 0) rc = make_map(&tv, v, sk, h, b, st[6], st[7], st[8], kBlockN);
   if (rc != 0) return rc;
-  static bool smem_set = false;   // once per process (one device)
-  if (!smem_set) {
+  int smem = L::kAlloc;
+  if constexpr (kTileMasked<Tag>) smem += 4 * a.mask.q_tiles;
+  static int smem_set = 0;   // the most set so far, per process (one device)
+  if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
         fwd_bf16<kConsumers, Tag>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::kAlloc);
+        smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
+    smem_set = smem;
   }
   dim3 grid((sq + 64 * kConsumers - 1) / (64 * kConsumers), b * h, a.n_split);
-  fwd_bf16<kConsumers, Tag><<<grid, (kConsumers + 1) * 128, L::kAlloc, s>>>(
+  fwd_bf16<kConsumers, Tag><<<grid, (kConsumers + 1) * 128, smem, s>>>(
       tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -400,7 +504,8 @@ int launch_bf16(const void* q, const void* k, const void* v, int b, int h,
 // q: (b, h, sq, 64), k, v: (b, h, sk, 64), o like q, each through its
 // (batch, head, row) strides in elements (strides[0..11]: q, k, v, o), with
 // unit stride within a row and 16-byte-aligned rows and base.
-// lse: null, or f32 (b*h, sq) that receives each row's log-sum-exp.
+// lse: null, or f32 (b, h, sq) through strides[12..14] that receives each
+// row's log-sum-exp.
 // bf16 only: n_split > 1 cuts the keys into n_split ranges of whole
 // 128-key tiles; part_o (n_split, b*h, sq, 64) and part_lse (n_split, b*h,
 // sq), f32, are the workspace of the partial results, and tickets holds
@@ -412,25 +517,36 @@ int launch_bf16(const void* q, const void* k, const void* v, int b, int h,
 // cuTensorMapEncodeTiled, 901 for an empty split or more than kMaxSplits
 // splits, 902 for too few tickets,
 // or 1000 + the driver's error when a tensor map is refused.
+// A masked tag (K7) takes bf16 self-attention only (sq == sk), unsplit,
+// with its pre-pass's `mask`; else 901. Its block holds a list of 4-byte
+// key tiles in shared memory: past about 28 000 tiles (3.6 M tokens, whose
+// mask bits alone would take S^2 / 8 bytes) the launch returns the CUDA
+// error of cudaFuncSetAttribute.
 template <typename Tag>
 int fwd_entry(const void* q, const void* k, const void* v, void* o, float* lse,
               float* part_o, float* part_lse, int* tickets, int n_tickets,
               int b, int h, int sq, int sk, const long long* strides,
-              int n_split, float scale, int dtype, void* stream) {
+              int n_split, float scale, int dtype, void* stream,
+              const TileMask* mask = nullptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* st = strides;
-  if (dtype != 1) {
+  FwdArgsOf<Tag> a;
+  if constexpr (kTileMasked<Tag>) {
+    if (dtype != 1 || n_split != 1 || mask == nullptr || sq != sk ||
+        mask->q_tiles != (sq + kMaskTile - 1) / kMaskTile)
+      return 901;
+    a.mask = *mask;
+  } else if (dtype != 1) {
     dim3 grid((sq + kScalarQ - 1) / kScalarQ, b * h);
     fwd_f32<Tag><<<grid, kScalarWarps * 32, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, st[0], st[1],
         st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-        h, sq, sk, scale);
+        st[12], st[13], st[14], h, sq, sk, scale);
     return static_cast<int>(cudaGetLastError());
   }
   const int tiles = (sk + kBlockN - 1) / kBlockN;
   if (n_split < 1 || n_split > tiles || n_split > kMaxSplits) return 901;
-  FwdArgs a;
   a.o = static_cast<bf16*>(o);
   a.lse = lse;
   a.part_o = part_o;
@@ -439,6 +555,9 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, float* lse,
   a.o_bs = st[9];
   a.o_hs = st[10];
   a.o_rs = st[11];
+  a.l_bs = st[12];
+  a.l_hs = st[13];
+  a.l_rs = st[14];
   a.h = h;
   a.bh = b * h;
   a.sq = sq;

@@ -3,40 +3,57 @@
 // Replaces the TPU kernel `_fwd_kernel` in
 // motion324_tpu/ops/masked_attention.py (reached through
 // `masked_flash_attention`, the turbo multiview attention of the paint
-// UNet): exact attention over (B*H, S, 64) in which query i sees key j only
+// UNet): exact attention over (B, H, S, 64) in which query i sees key j only
 // where their voxel-cell positions lie within the radius,
 //
 //     d2 = |pq|^2 + |pk|^2 - 2 pq.pk < r^2,
 //
-// the mask rebuilt per tile from the (B, S, 3) f32 positions (shared by the
-// heads of a batch) instead of read from an (S, S) array. d2 is taken in f32
-// in exactly that order with __fmul_rn / __fadd_rn, so that nvcc cannot
-// contract it into FMAs and flip mask bits against the plain version. Masked
-// logits are -1e30, as in the TPU kernel; a real row always keeps its own
-// key (d2 = 0), so it is never fully masked.
+// from the (B, S, 3) f32 positions, shared by the heads of a batch. d2 is
+// taken in f32 in exactly that order with __fmul_rn / __fadd_rn, so that
+// nvcc cannot contract it into FMAs and flip mask bits against the plain
+// version. Masked logits are -1e30, as in the TPU kernel; a real row always
+// keeps its own key (d2 = 0), so it is never fully masked.
 //
-// What bounds it on the H100: the dense work, 4 S^2 64 flops per head, on
-// the tensor cores (the kernel does not skip masked tiles yet), against
-// q, k, v, o and the positions read or written once.
+// What bounds it on the H100: the work over the key tiles that hold a kept
+// pair, 4 x 128 x 128 x 64 flops per listed (query tile, key tile) and
+// head, on the tensor cores; the mask test itself, about 10 f32 operations
+// per pair, once per batch (not per head).
 //
-// What the design does about that: K1's design (flash_fwd.cu), one block of
-// 4 warps per (batch*head, 64-query tile), both products on the tensor cores
-// (mma.sync bf16, f32 accumulation), with the key positions of each 64-key
-// chunk staged in shared memory beside K and V (x, y, z and |pk|^2) and each
-// thread's two query rows' positions in registers. Not yet done: skipping
-// the tiles whose cells are all out of reach (most of them at 6 views),
-// wgmma/TMA.
+// What the design does about that, in two launches:
+// - The pre-pass (mask_bits) evaluates the test for every (query, key)
+//   pair of each batch once, shared by its heads: one block per
+//   (128-query tile, 128-key tile, batch), one thread per query row. It
+//   writes the mask bits, (B, S padded to 128, S / 32 padded to 4) u32,
+//   and one flag per tile, set where the tile holds a kept pair: a tile
+//   whose cells are all out of reach is never visited. The flags are exact
+//   by construction: they are the OR of the bits. The diagonal tile always
+//   holds a kept pair.
+// - The main loop is K1's kernel (hopper_fwd.cuh: a TMA producer warp
+//   feeding 128-key tiles to wgmma consumer warpgroups) under K7's tag,
+//   whose tile policy (VoxelTiles) makes each block compact its query
+//   tile's flags into an ordered list of key tiles in shared memory, load
+//   only those, and set the logits whose bit is clear to -1e30 before the
+//   online softmax.
+//   Skipping is exact: a skipped tile holds no kept key of any row, so its
+//   contribution exp(-1e30 - m) is 0 for every row that has a kept key; a
+//   row that has kept no key yet gives its masked logits p = 0 (not the
+//   reference's exp(0) over a fully masked row, which no real row is: each
+//   keeps its own key, in the diagonal tile). q, k, v and o go through their
+//   (batch, head, row) strides, so the UNet's (B, S, H, 64) views need no
+//   copy. Never split.
 //
-// The f32 variant runs scalar FMA for the products and is a checking path.
+// The f32 variant runs scalar FMA with the test per element and is a
+// checking path; it needs no pre-pass.
 
-#include "attention_common.cuh"
+#include "hopper_fwd.cuh"
 
 using namespace m324;
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kBlockQ = 16 * kWarps;
+struct k7_masked_flash : fwd::VoxelTiles {};   // fwd_bf16<..., k7_masked_flash>
+
+constexpr int kTile = fwd::kMaskTile;
 
 __device__ __forceinline__ float norm2(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
@@ -61,60 +78,42 @@ __device__ __forceinline__ float4 position(const float* pos, int i, int s) {
   return make_float4(x, y, z, norm2(x, y, z));
 }
 
-struct VoxelMask {
-  float4 q[2];        // rows g and g + 8
-  const float4* pk;   // the chunk's key positions in shared memory
-  float r2;
-  __device__ __forceinline__ void operator()(float (&s)[8][4], int, int t) const {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float4 k = pk[8 * j + 2 * t + e];
-        if (!within(q[0], k, r2)) s[j][e] = kNegInf;
-        if (!within(q[1], k, r2)) s[j][2 + e] = kNegInf;
-      }
-    }
-  }
-};
-
-__global__ void __launch_bounds__(kWarps * 32)
-masked_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const float* __restrict__ pos,
-                bf16* __restrict__ o, int heads, int s, float scale, float r2) {
-  __shared__ uint4 smem_raw[(kBlockQ + 2 * kKeys) * kRow * sizeof(bf16) / 16];
-  __shared__ float4 pk_s[kKeys];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kBlockQ * kRow;
-  bf16* v_s = k_s + kKeys * kRow;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * kBlockQ;
-  const long long bh = blockIdx.y;
-  const float* pb = pos + (bh / heads) * 3LL * s;
-  const bf16* qb = q + bh * s * kD;
-  const bf16* kb = k + bh * s * kD;
-  const bf16* vb = v + bh * s * kD;
-
-  load_rows_bf16(q_s, qb, kD, row0, kBlockQ, s, scale, tid, kWarps * 32);
+// The pre-pass: block (kt, qt, b), thread t owns query row 128 qt + t and
+// writes its 4 words over key tile kt (keys past s, and rows past s, clear);
+// the block's OR is the tile's flag.
+__global__ void __launch_bounds__(kTile)
+mask_bits(const float* __restrict__ pos, uint32_t* __restrict__ bits,
+          unsigned char* __restrict__ flags, int s, float r2) {
+  __shared__ float4 pk[kTile];
+  const int t = threadIdx.x, kt = blockIdx.x, qt = blockIdx.y, b = blockIdx.z;
+  const int tiles = gridDim.x;
+  const float* pb = pos + (long long)b * 3 * s;
+  pk[t] = position(pb, kt * kTile + t, s);
   __syncthreads();
-  WarpAttn st;
-  st.init(q_s + warp * 16 * kRow, lane);
-  VoxelMask mask;
-  const int g = lane >> 2;
-  mask.q[0] = position(pb, row0 + warp * 16 + g, s);
-  mask.q[1] = position(pb, row0 + warp * 16 + g + 8, s);
-  mask.pk = pk_s;
-  mask.r2 = r2;
-
-  for (int kv0 = 0; kv0 < s; kv0 += kKeys) {
-    __syncthreads();
-    load_rows_bf16(k_s, kb, kD, kv0, kKeys, s, 1.0f, tid, kWarps * 32);
-    load_rows_bf16(v_s, vb, kD, kv0, kKeys, s, 1.0f, tid, kWarps * 32);
-    if (tid < kKeys) pk_s[tid] = position(pb, kv0 + tid, s);
-    __syncthreads();
-    st.step(k_s, v_s, min(kKeys, s - kv0), lane, mask);
+  const int row = qt * kTile + t;
+  const float4 pq = position(pb, row, s);
+  const int n = row < s ? min(kTile, s - kt * kTile) : 0;   // keys to test
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      if (32 * i + e < n && within(pq, pk[32 * i + e], r2)) x |= 1u << e;
+    w[i] = x;
   }
-  st.store(o + bh * s * kD, kD, row0 + warp * 16, s, lane, nullptr, 1);
+  const long long words = 4LL * tiles;
+  *reinterpret_cast<uint4*>(bits + ((long long)b * tiles * kTile + row) * words +
+                            4 * kt) = make_uint4(w[0], w[1], w[2], w[3]);
+  const int any = __syncthreads_or((w[0] | w[1] | w[2] | w[3]) != 0);
+  if (t == 0) flags[((long long)b * tiles + qt) * tiles + kt] = any != 0;
+}
+
+int launch_mask_bits(const float* pos, uint32_t* bits, unsigned char* flags,
+                     int b, int s, float r2, cudaStream_t st) {
+  const int tiles = (s + kTile - 1) / kTile;
+  mask_bits<<<dim3(tiles, tiles, b), kTile, 0, st>>>(pos, bits, flags, s, r2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 struct ScalarVoxelMask {
@@ -126,42 +125,74 @@ struct ScalarVoxelMask {
   }
 };
 
+// q, k, v, o: (batch, head, row) strides in elements, in that order
+struct Strides {
+  long long v[12];
+};
+
 __global__ void __launch_bounds__(kScalarWarps * 32)
 masked_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ pos,
-               float* __restrict__ o, int heads, int s, float scale, float r2) {
+               float* __restrict__ o, const Strides st, int h, int s,
+               float scale, float r2) {
   __shared__ float smem[kScalarSmemFloats];
-  const long long bh = blockIdx.y;
-  const ScalarVoxelMask keep{pos + (bh / heads) * 3LL * s, s, r2};
-  scalar_attend(q + bh * s * kD, k + bh * s * kD, v + bh * s * kD,
-                o + bh * s * kD, nullptr, kD, kD, kD, kD, 1, s, s,
-                blockIdx.x * kScalarQ, scale, smem, keep);
+  const long long b = blockIdx.y / h, hh = blockIdx.y % h;
+  const long long* x = st.v;
+  const ScalarVoxelMask keep{pos + b * 3 * s, s, r2};
+  scalar_attend(q + b * x[0] + hh * x[1], k + b * x[3] + hh * x[4],
+                v + b * x[6] + hh * x[7], o + b * x[9] + hh * x[10], nullptr,
+                x[2], x[5], x[8], x[11], 1, s, s, blockIdx.x * kScalarQ, scale,
+                smem, keep);
 }
 
 }  // namespace
 
-// q, k, v, o: (B*H, s, 64), self-attention; pos: (B, s, 3) f32, the
-// positions of batch b shared by its `heads` heads; all contiguous, 16-byte
-// aligned. r2: the squared radius. dtype: 0 = float32, 1 = bfloat16.
-// Launches on `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError() after the launch.
+// The pre-pass alone: pos (b, s, 3) f32 contiguous; bits (b, T * 128, 4 T)
+// u32 and flags (b, T, T) u8, T = ceil(s / 128), written in full (the
+// layout of m324::fwd::TileMask). Returns cudaGetLastError() after the
+// launch.
+extern "C" int m324_masked_bits(const float* pos, uint32_t* bits,
+                                unsigned char* flags, int b, int s, float r2,
+                                void* stream) {
+  return launch_mask_bits(pos, bits, flags, b, s, r2,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// q, k, v, o: (b, h, s, 64), self-attention, each through its (batch, head,
+// row) strides in elements (strides[0..11]: q, k, v, o), unit stride within
+// a row, 16-byte-aligned rows and base; pos: (b, s, 3) f32 contiguous, the
+// positions of batch i shared by its h heads. r2: the squared radius.
+// dtype 1 (bfloat16): the pre-pass writes bits and flags (as for
+// m324_masked_bits; the caller's workspace, read by the main loop), then
+// the main loop runs; dtype 0 (float32): the scalar kernel alone (bits and
+// flags unused, may be null). Launches on `stream`, allocates nothing, does
+// not synchronise; returns 0, a CUDA error, 900 without
+// cuTensorMapEncodeTiled, or 1000 + the tensor-map
+// encoder's error.
 extern "C" int m324_masked_flash(const void* q, const void* k, const void* v,
-                                 const float* pos, void* o, int bh, int heads,
-                                 int s, float scale, float r2, int dtype,
-                                 void* stream) {
+                                 const float* pos, void* o, uint32_t* bits,
+                                 unsigned char* flags, int b, int h, int s,
+                                 const long long* strides, float scale,
+                                 float r2, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
-    masked_fwd_bf16<<<grid, kWarps * 32, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), pos, static_cast<bf16*>(o), heads, s,
-        scale, r2);
-  } else {
-    dim3 grid((s + kScalarQ - 1) / kScalarQ, bh);
+  if (dtype != 1) {
+    Strides x;
+    for (int i = 0; i < 12; ++i) x.v[i] = strides[i];
+    dim3 grid((s + kScalarQ - 1) / kScalarQ, b * h);
     masked_fwd_f32<<<grid, kScalarWarps * 32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), pos, static_cast<float*>(o), heads, s,
+        static_cast<const float*>(v), pos, static_cast<float*>(o), x, h, s,
         scale, r2);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  int rc = launch_mask_bits(pos, bits, flags, b, s, r2, st);
+  if (rc != 0) return rc;
+  const int tiles = (s + kTile - 1) / kTile;
+  const fwd::TileMask mask{bits, flags, 4 * tiles, tiles};
+  long long st15[15];
+  for (int i = 0; i < 12; ++i) st15[i] = strides[i];
+  st15[12] = st15[13] = st15[14] = 0;   // no LSE
+  return fwd::fwd_entry<k7_masked_flash>(q, k, v, o, nullptr, nullptr, nullptr,
+                                         nullptr, 0, b, h, s, s, st15, 1,
+                                         scale, 1, stream, &mask);
 }

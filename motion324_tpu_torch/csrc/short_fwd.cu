@@ -45,8 +45,9 @@ struct k9_short_fwd {};   // K9's kernels in a profile: fwd_*<..., k9_short_fwd>
 
 // The contract of m324::fwd::fwd_entry (hopper_fwd.cuh): q, k, v, o
 // (b, h, s, 64) through (batch, head, row) strides, lse null or f32
-// (b*h, sq), bf16 split-KV with its workspace and tickets; returns 0, a
-// CUDA error, or 900 / 901 / 902 / 1000 + the driver's tensor-map error.
+// through strides[12..14] (the wrapper passes the compact (b*h, sq)), bf16
+// split-KV with its workspace and tickets; returns 0, a CUDA error, or
+// 900 / 901 / 902 / 1000 + the tensor-map encoder's error.
 extern "C" int m324_short_fwd(const void* q, const void* k, const void* v,
                               void* o, float* lse, float* part_o,
                               float* part_lse, int* tickets, int n_tickets,

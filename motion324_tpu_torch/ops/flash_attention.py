@@ -48,7 +48,7 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_bwd_reference",
            "flash_attention_bwd_split_reference", "FlashAttentionFn",
            "bwd_plan", "FUSED_BWD_MAX_KV", "SINGLE_KV_MAX", "single_kv_route",
-           "single_kv_plan", "split_count", "split_ranges"]
+           "single_kv_plan", "split_count", "split_ranges", "lse_strides"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -386,15 +386,22 @@ def _forward_k1(q, k, v, scale: float, with_lse: bool):
                           with_lse, split_count)
 
 
+def lse_strides(b: int, h: int, sq: int, heads_last: bool) -> list[int]:
+    """The (batch, head, row) strides in elements of the contiguous f32 LSE
+    that the Hopper forward writes: ``(B*H, Sq)`` for K1 and K9 (batch
+    ``H Sq``, head ``Sq``, row 1), or with ``heads_last`` ``(B, Sq, H)`` for
+    K2 (batch ``Sq H``, head 1, row ``H``), the layout K5 reads."""
+    return [sq * h, 1, h] if heads_last else [h * sq, sq, 1]
+
+
 def hopper_forward(name: str, counter, q, k, v, scale: float, with_lse: bool,
                    split):
     """Launch the Hopper forward kernel of library ``name`` (``"flash_fwd"``:
-    K1; ``"short_fwd"``: the K9 forward, the same kernel under K9's name) on
-    CUDA tensors: ``(out, lse or None)``, out (B, H, Sq, 64) laid out
-    heads-last where q is, else contiguous; a bf16 call cuts its keys into
-    ``split(Sq, Sk)`` ranges (f32: 1). Adds one to ``counter.launches`` or
-    ``counter.lse_launches``. The host work here is part of each call's time
-    at the short rows, so it is kept lean."""
+    K1; ``"short_fwd"``: the K9 forward; the same kernel under each one's
+    name) on CUDA ``(B, H, S, 64)`` tensors: ``(out, lse or None)``, out
+    laid out heads-last where q is, else contiguous, lse f32 ``(B*H, Sq)``;
+    a bf16 call cuts its keys into ``split(Sq, Sk)`` ranges (f32: 1)
+    (:func:`hopper_launch`)."""
     strides = _check(q, k, v)
     dev = q.device
     if dev.index != torch.cuda.current_device():
@@ -403,9 +410,26 @@ def hopper_forward(name: str, counter, q, k, v, scale: float, with_lse: bool,
                                   split)
     b, h, sq, _ = q.shape
     sk = k.shape[2]
-    n_split = split(sq, sk) if q.dtype == torch.bfloat16 else 1
     out, out_strides = _empty_out(q)
-    strides += out_strides
+    strides += out_strides + lse_strides(b, h, sq, heads_last=False)
+    n_split = split(sq, sk) if q.dtype == torch.bfloat16 else 1
+    lse = hopper_launch(name, counter, q, k, v, out, strides, b, h, sq, sk,
+                        n_split, scale, with_lse, (b * h, sq))
+    return out, lse
+
+
+def hopper_launch(name: str, counter, q, k, v, out, strides, b: int, h: int,
+                  sq: int, sk: int, n_split: int, scale: float,
+                  with_lse: bool, lse_shape: tuple) -> torch.Tensor | None:
+    """The one launch of the Hopper forward (K1, K9, K2) on the current
+    device, over ``b * h`` slices of ``sq`` queries and ``sk`` keys, with
+    the 15 (batch, head, row) strides of q, k, v, ``out`` and the LSE
+    (checked by the caller), its keys cut into ``n_split`` ranges. Returns
+    the f32 LSE, a new contiguous tensor of ``lse_shape`` that those strides
+    describe, or None. Adds one to ``counter.launches`` or
+    ``counter.lse_launches``. The host work here is part of each call's time
+    at the short rows, so it is kept lean."""
+    dev = q.device
     # one f32 buffer (one allocation): the LSE, then for a split call the
     # partial LSEs and outputs, each part at a 16-byte boundary (the kernel
     # reads the partial outputs as float4); the LSE is a view, so the
@@ -417,7 +441,7 @@ def hopper_forward(name: str, counter, q, k, v, scale: float, with_lse: bool,
     buf = (torch.empty(n_lse + n_plse + 64 * n_part, dtype=torch.float32,
                        device=dev) if n_lse + n_part else None)
     base = 0 if buf is None else buf.data_ptr()
-    lse = buf[:rows].view(b * h, sq) if with_lse else None
+    lse = buf[:rows].view(lse_shape) if with_lse else None
     part_lse = base + 4 * n_lse if n_part else None
     part_o = base + 4 * (n_lse + n_plse) if n_part else None
     # the current stream's handle without a Stream object (5 us less host
@@ -433,7 +457,7 @@ def hopper_forward(name: str, counter, q, k, v, scale: float, with_lse: bool,
         base if with_lse else None, part_o, part_lse,
         None if tickets is None else tickets.data_ptr(),
         0 if tickets is None else tickets.numel(), b, h, sq, sk,
-        (ctypes.c_longlong * 12)(*strides), n_split, scale, _DTYPES[q.dtype],
+        (ctypes.c_longlong * 15)(*strides), n_split, scale, _DTYPES[q.dtype],
         stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: error {rc} (CUDA error "
@@ -444,11 +468,11 @@ def hopper_forward(name: str, counter, q, k, v, scale: float, with_lse: bool,
         counter.lse_launches += 1
     else:
         counter.launches += 1
-    return out, lse
+    return lse
 
 
 def _empty_out(q: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
-    """An uninitialised (B, H, Sq, 64) output for K1 / K6 / K9 and its
+    """An uninitialised (B, H, Sq, 64) output for K1, K6, K7 and K9 and its
     (batch, head, row) strides: laid out heads-last where q is a
     (B, S, H, 64) view, so that the dispatcher's transpose back is
     contiguous, else contiguous."""

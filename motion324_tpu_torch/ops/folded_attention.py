@@ -3,7 +3,11 @@ model-native ``(B, S, H*64)``.
 
 :func:`folded_attention` is differentiable. A call that needs no gradient
 (DINOv2, under ``torch.no_grad``) launches ``csrc/folded_fwd.cu`` without
-the LSE output (``folded_attention.launches``). A call with an input that
+the LSE output (``folded_attention.launches``): K1's Hopper forward under
+K2's name, reading the ``(B, S, H*64)`` tensors as ``(B, H, S, 64)``
+through strides, its keys split by K9's rule (:func:`~motion324_tpu_torch.ops.short_attention.
+short_split_count`, a function of (Sq, Sk) alone: the call sites stay
+unsplit). A call with an input that
 requires grad multiplies q by the logit scale in q's dtype and runs
 :class:`FoldedAttentionFn`: its forward launches the same kernel with the
 per-head f32 LSE ``(B, Sq, H)`` (``folded_attention.lse_launches``), its
@@ -25,20 +29,21 @@ import ctypes
 import torch
 
 from motion324_tpu_torch.ops.flash_attention import (
-    _DTYPES, _load, _stream, _tickets, attention_reference,
-    flash_attention_bwd_reference, map_strides, scale_in_dtype)
-from motion324_tpu_torch.ops.short_attention import _BWD_ARGS, short_bwd_plan
+    _DTYPES, _load, _tickets, attention_reference,
+    flash_attention_bwd_reference, hopper_launch, lse_strides, map_strides,
+    scale_in_dtype)
+from motion324_tpu_torch.ops.short_attention import (_BWD_ARGS, short_bwd_plan,
+                                                     short_split_count)
 
 __all__ = ["folded_attention", "folded_attention_reference",
            "folded_attention_bwd", "folded_attention_bwd_reference",
-           "FoldedAttentionFn", "folded_bwd_plan", "folded_bwd_strides"]
-
-_FWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 6
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+           "FoldedAttentionFn", "folded_bwd_plan", "folded_bwd_strides",
+           "folded_fwd_strides"]
 
 
 def _heads_first(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """The ``(B, H, S, D)`` view of a ``(B, S, H*D)`` tensor (head stride
+    D, row stride the tensor's), as the kernels read it: no copy."""
     b, s, c = x.shape
     return x.reshape(b, s, heads, c // heads).transpose(1, 2)
 
@@ -106,29 +111,49 @@ def _check(q, k, v, heads):
         raise ValueError("empty sequence")
 
 
+def folded_fwd_strides(q, k, v, heads: int) -> list[int]:
+    """The 15 (batch, head, row) strides in elements that K2 is handed, from
+    the ``(B, S, H*64)`` tensors themselves (no view is made: each would
+    cost host time on every call): q, k and v as ``(B, H, S, 64)`` (head
+    stride 64, row stride the tensor's: ``3 H 64`` on the fused-QKV slices;
+    a batch or row dimension of size 1 gets :func:`map_strides`'s stride),
+    the output's, which is the contiguous ``(B, Sq, H*64)``, and the f32
+    LSE ``(B, Sq, H)`` (:func:`lse_strides`), the layout K5 and
+    :class:`FoldedAttentionFn` read. Raises on what the kernel does not
+    take (:func:`_check`)."""
+    _check(q, k, v, heads)
+    b, sq, c = q.shape
+    st = []
+    for t in (q, k, v):
+        bs, rs, _ = t.stride()
+        n = t.shape[1]
+        st += [bs if b > 1 else n * 64, 64, rs if n > 1 else 64]
+    return st + [sq * c, 64, c] + lse_strides(b, heads, sq, heads_last=True)
+
+
 def _forward(q, k, v, heads: int, scale: float, with_lse: bool):
-    """``(out, lse or None)``: the kernel on CUDA, the plain version on CPU."""
+    """``(out, lse or None)``: the kernel on CUDA, the plain version on CPU.
+    out is contiguous ``(B, Sq, H*64)``, lse f32 ``(B, Sq, H)``. The kernel
+    is launched through :func:`hopper_launch` with the strides of
+    :func:`folded_fwd_strides` and no view (the short rows are bound by the
+    host work); a bf16 call's keys are split by :func:`short_split_count`,
+    which keeps every call site unsplit."""
     if q.device.type == "cpu":
         out = folded_attention_reference(q, k, v, heads=heads, scale=scale,
                                          with_lse=with_lse)
         return out if with_lse else (out, None)
-    _check(q, k, v, heads)
+    strides = folded_fwd_strides(q, k, v, heads)
+    dev = q.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _forward(q, k, v, heads, scale, with_lse)
     b, sq, c = q.shape
-    out = torch.empty((b, sq, c), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((b, sq, heads), dtype=torch.float32, device=q.device)
-           if with_lse else None)
-    with torch.cuda.device(q.device):
-        rc = _load("folded_fwd", _FWD_ARGS).m324_folded_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, heads, sq, k.shape[1],
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-            v.stride(1), scale, _DTYPES[q.dtype], _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"folded_fwd launch failed: CUDA error {rc}")
-    if with_lse:
-        folded_attention.lse_launches += 1
-    else:
-        folded_attention.launches += 1
+    sk = k.shape[1]
+    out = torch.empty((b, sq, c), dtype=q.dtype, device=dev)
+    n_split = short_split_count(sq, sk) if q.dtype == torch.bfloat16 else 1
+    lse = hopper_launch("folded_fwd", folded_attention, q, k, v, out, strides,
+                        b, heads, sq, sk, n_split, scale, with_lse,
+                        (b, sq, heads))
     return out, lse
 
 
@@ -150,14 +175,13 @@ def folded_bwd_strides(q, k, v, o, do, lse, heads: int) -> list[int]:
     does not take), the contiguous f32 lse ``(B, Sq, H)`` (batch ``Sq H``,
     head 1, row ``H``), then the contiguous ``(B, S, H*64)`` dq, dk and dv
     the wrapper allocates."""
-    hf = lambda x: x.unflatten(-1, (heads, 64)).transpose(1, 2)
     st = []
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("dO", do)):
-        st += map_strides(name, hf(t))
+        st += map_strides(name, _heads_first(t, heads))
     b, sq, c = q.shape
     sk = k.shape[1]
-    return st + [sq * heads, 1, heads, sq * c, 64, c, sk * c, 64, c,
-                 sk * c, 64, c]
+    return st + lse_strides(b, heads, sq, heads_last=True) + [
+        sq * c, 64, c, sk * c, 64, c, sk * c, 64, c]
 
 
 def folded_attention_bwd(q, k, v, o, lse, do, *, heads: int):

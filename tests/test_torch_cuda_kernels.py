@@ -91,7 +91,7 @@ def test_cuda_flash_matches_plain(cuda, dtype, sq, sk, strided):
 @pytest.mark.parametrize("sq,sk", [(257, 257), (324, 324), (200, 1000)])
 def test_cuda_folded_matches_plain(cuda, dtype, sq, sk):
     """q/k/v are strided views of one fused projection, as the model
-    hands them over; KV above 384 keys runs in resident segments."""
+    hands them over."""
     g = torch.Generator(device=cuda).manual_seed(1)
     h = 4
     qkv = torch.randn(3, max(sq, sk), 3 * h * 64, generator=g,
@@ -308,6 +308,59 @@ def test_cuda_slices_do_not_depend_on_the_batch(cuda, case):
     assert not any(t.any().item() for t in fa._TICKETS.values())
 
 
+# K2 at its call sites (local frames, DINOv2, the ShapeVAE, the UNet's 16^2
+# level and mid block), a ragged row and one query tile over 4 096 keys,
+# whose bf16 keys are split (short_split_count; the partial results
+# combined into the heads-last output and LSE), with and without the LSE,
+# on fused-QKV views; the LSE (B, Sq, H) as K5 reads it
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [False, True], ids=["out", "lse"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,sq,sk", [(12, 12, 324, 324), (12, 12, 257, 257),
+                                       (1, 16, 512, 512), (6, 20, 256, 256),
+                                       (1, 20, 384, 384), (2, 12, 200, 1000),
+                                       (2, 12, 64, 4096)],
+                         ids=["local", "dino", "vae", "unet_16", "unet_mv_384",
+                              "ragged", "split"])
+def test_cuda_folded_at_its_sites(cuda, dtype, with_lse, b, h, sq, sk):
+    from motion324_tpu_torch.ops import folded_attention as fo
+    from motion324_tpu_torch.ops.short_attention import short_split_count
+    if sk == 4096:
+        assert short_split_count(sq, sk) > 1
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v = _fused_qkv(g, cuda, dtype, b, h, sq, sk)
+    counter = "lse_launches" if with_lse else "launches"
+    before = getattr(folded_attention, counter)
+    out, lse = fo._forward(q, k, v, h, 1.0, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert getattr(folded_attention, counter) == before + 1
+    assert out.shape == q.shape and out.is_contiguous()
+    want = folded_attention_reference(q, k, v, heads=h, scale=1.0,
+                                      with_lse=True)
+    assert_matches_plain(out, want[0])
+    if with_lse:
+        assert lse.shape == (b, sq, h) and lse.is_contiguous()
+        assert_matches_plain(lse, want[1])
+
+
+# K2 with the LSE: slice 0 of a B = 4 call has the bits of the same image
+# alone, and a call repeats bit for bit (the local rows are never split)
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [324, 257])
+def test_cuda_folded_lse_slices_do_not_depend_on_the_batch(cuda, sq):
+    from motion324_tpu_torch.ops import folded_attention as fo
+    g = torch.Generator(device=cuda).manual_seed(18)
+    h = 12
+    q, k, v = _fused_qkv(g, cuda, torch.bfloat16, 4, h, sq, sq)
+    four = fo._forward(q, k, v, h, 1.0, with_lse=True)
+    again = fo._forward(q, k, v, h, 1.0, with_lse=True)
+    one = fo._forward(q[:1], k[:1], v[:1], h, 1.0, with_lse=True)
+    torch.cuda.synchronize()
+    for a, a2, o in zip(four, again, one):
+        assert torch.equal(a, a2)
+        assert torch.equal(a[:1], o)
+
+
 # K6 computes exactly the plain version's function (one max over all keys,
 # P rounded against it), so only the order of its f32 sums differs: it is
 # held to the same shares of max |plain| as K1, and lands further inside.
@@ -467,6 +520,87 @@ def test_cuda_masked_flash_matches_plain(cuda, dtype, b, h, s, g):
     miss = masked_attention_reference(q, k, v, pos, radius=radius * 0.7)
     assert (miss.float() - want.float()).abs().max() > \
         REL_TOL[dtype] * want.float().abs().max()
+
+
+def _surface_positions(gen, cuda, b, s):
+    """Cell positions in random order on a sphere inside the unit box, an
+    eighth at the origin (chip_smoke.py's surface_positions)."""
+    p = torch.randn(b, s, 3, generator=gen, device=cuda)
+    p = 0.5 + 0.45 * p / p.norm(dim=-1, keepdim=True)
+    p[:, : s // 8] = 0.0
+    return p
+
+
+def _raster_positions(cuda, n_views, hw, g):
+    """Cell positions in the paint path's order (voxel_positions: view by
+    view, raster order over the g x g cells) from synthetic position maps:
+    view 0 a wavy sheet that fills it, the others disks above it on a
+    background (cells at the origin)."""
+    from motion324_tpu_torch.hy3dgen.voxel_attention import voxel_positions
+    c = (torch.arange(hw, device=cuda) + 0.5) / hw
+    w, u = torch.meshgrid(c, c, indexing="ij")
+    maps = []
+    for i in range(n_views):
+        z = 0.3 + 0.4 * (i > 0) + 0.1 * torch.sin(3 * u + i) * torch.cos(2 * w)
+        m = torch.stack([u, w, z], -1)
+        if i > 0:
+            m[(u - 0.5) ** 2 + (w - 0.5) ** 2 > 0.35 ** 2] = 1.0
+        maps.append(m)
+    return voxel_positions(torch.stack(maps)[None], g)
+
+
+def _masked_positions(gen, cuda, order, b, s, g):
+    if order == "surface":
+        return _surface_positions(gen, cuda, b, s), 1.73 / g
+    views = s // (g * g)
+    pos, r = _raster_positions(cuda, views, 8 * g, g)
+    return pos.expand(b, -1, -1).contiguous(), r
+
+
+# K7 on both position orders at the turbo shapes (6 views of 32^2, 16^2 and
+# 8^2 cells) and a ragged one, q/k/v as the UNet's (B, S, H, 64) views: the
+# output within REL_TOL of the plain version, laid out heads-last, and
+# the pre-pass's bits and tile flags bit for bit those of
+# masked_tile_list_reference
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("order", ["surface", "raster"])
+@pytest.mark.parametrize("b,h,s,g", [(1, 10, 6144, 32), (1, 20, 1536, 16),
+                                     (1, 20, 384, 8), (2, 3, 320, 8)])
+def test_cuda_masked_flash_on_both_orders(cuda, dtype, order, b, h, s, g):
+    from motion324_tpu_torch.ops import masked_attention as ma
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    pos, radius = _masked_positions(gen, cuda, order, b, s, g)
+    q, k, v = (torch.randn(b, s, h, 64, generator=gen, device=cuda)
+               .to(dtype).transpose(1, 2) for _ in range(3))
+    before = masked_flash_attention.launches
+    out = masked_flash_attention(q, k, v, pos, radius=radius)
+    torch.cuda.synchronize()
+    assert masked_flash_attention.launches == before + 1
+    assert out.transpose(1, 2).is_contiguous()
+    want = masked_attention_reference(q, k, v, pos, radius=radius)
+    assert_matches_plain(out, want)
+    if dtype == torch.bfloat16:
+        bits, tiles = ma.masked_tile_list(pos, radius)
+        want_bits, want_tiles = ma.masked_tile_list_reference(pos, radius)
+        torch.cuda.synchronize()
+        assert torch.equal(bits, want_bits)
+        assert torch.equal(tiles, want_tiles)
+
+
+# K7's list of key tiles is sized at launch: a call past 256 tiles (32 768
+# tokens) runs and matches the plain version
+@pytest.mark.cuda
+def test_cuda_masked_flash_past_256_tiles(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    s = 258 * 128 - 40
+    pos = _surface_positions(gen, cuda, 1, s)
+    q, k, v = (torch.randn(1, 1, s, 64, generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    out = masked_flash_attention(q, k, v, pos, radius=1.73 / 64)
+    want = masked_attention_reference(q, k, v, pos, radius=1.73 / 64)
+    torch.cuda.synchronize()
+    assert_matches_plain(out, want)
 
 
 def _mesh(seed: int, n_faces: int, n_verts: int):
