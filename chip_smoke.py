@@ -53,8 +53,7 @@ Phases, each of which raises on failure (exit code non-zero):
    CFG) and one turbo paint (8 LCM steps, voxel-masked multiview attention
    on K7), each with its exact launches by call site, seconds by stage,
    peak memory and coverage, every K8 call held bit for bit to the plain
-   rasterizer; K8 timed at a 512^2 view and the 2 048^2 UV atlas, with a
-   dropped face chunk and a reversed tie-break caught; one UNet w + r pass
+   rasterizer; one UNet w + r pass
    at the Euler and at the turbo shapes, and the first K7 call site alone,
    against the plain attention path, with two injected K7 faults; a
    device-only profile of the turbo paint.
@@ -84,6 +83,14 @@ Phases, each of which raises on failure (exit code non-zero):
    stage; K1 and K2 slices bit for bit at B = 1 against B = 4); the bf16
    mask against the f32 one; clips/s at B = 1 and B = 4 (decode chunk 6
    and 12); U2Net and ISNet ms per 224^2 frame.
+
+12. K8 (before the paint path): the paint phase's renderer alone (no
+   diffusion model); K8 at the 512^2 front view and the 2 048^2 UV atlas,
+   bit for bit against its plain version at every launch configuration,
+   timed beside it and its bound over the pairs in the faces' bboxes, with
+   the binned pairs and the pairs its cull keeps; a sliver mesh at 512^2,
+   333 x 97 and 1 100 x 3 bit for bit; a dropped face chunk and a reversed
+   tie-break caught.
 
 The kernel phase also holds K7 at the three turbo shapes (on the paint
 path's positions and on random surface positions, with their pair and
@@ -1930,67 +1937,144 @@ def k8_faults(torch, ra, coeffs, bbox, width, height, want) -> dict:
             "K8 reverses the tie-break": back}
 
 
-def k8_rows(torch, renderer, seed: int) -> tuple[list, list]:
-    """K8 at the front view (512^2) and the UV atlas (2 048^2) of the
-    painted mesh: bit for bit against the plain version, timed beside it;
-    the bound is the larger of the bytes (coefficients and chunk bboxes
-    read, 4 B of findices per pixel written) and the binned tests (10 f32
-    operations per tested (pixel, face) pair: beta and gamma, 2 multiplies
-    and 2 adds each, and alpha, 2 subtracts) at the f32 rate. The faults
-    run on the front view with every face doubled (each covered pixel a
-    tie). Returns (rows, problems)."""
-    from motion324_tpu_torch.ops import rasterizer as ra
-    faces = renderer._faces
+def raster_cases(torch) -> tuple:
+    """K8's two calls on the paint path as the paint phase makes them, from
+    the paint phase's renderer alone (no diffusion model): ``(renderer,
+    [(case, clip positions, size)])``, the front view at PAINT_RES and the
+    UV atlas at TEXTURE_SIZE of the unwrapped deformed sphere. The renderer
+    is orthographic, so every w is 1."""
+    from motion324_tpu_torch.hy3dgen.paint_pipeline import PaintPipeline
+    from motion324_tpu_torch.hy3dgen.uv_unwrap import unwrap_uv
+    pipe = PaintPipeline(multiview_model=lambda *a: None, resolution=PAINT_RES,
+                         texture_size=TEXTURE_SIZE, delight=False,
+                         device="cuda")
+    renderer = pipe.renderer(unwrap_uv(deformed_sphere(), TEXTURE_SIZE)[0])
     clip = torch.as_tensor(renderer._clip_positions(0.0, 0.0), device="cuda")
     uv = torch.as_tensor(renderer.mesh.uv, device="cuda")
     uv_pos = torch.stack([uv[:, 0] * 2 - 1, 1 - 2 * uv[:, 1],
                           torch.zeros_like(uv[:, 0]), torch.ones_like(uv[:, 0])], 1)
-    rows, problems = [], []
-    for pos, size in ((clip, renderer.resolution),
-                      (uv_pos, renderer.texture_size)):
-        case = f"raster_{size}"
+    return renderer, [(f"raster_{PAINT_RES}", clip, PAINT_RES),
+                      (f"raster_{TEXTURE_SIZE}", uv_pos, TEXTURE_SIZE)]
+
+
+def raster_times(torch, cases, faces) -> dict:
+    """K8 (``raster_kernel``) and its plain version on each case, the kernel
+    held bit for bit: ``{case: (ms, plain_ms, findices differing)}``. It
+    uses only what K8's module has had since its first port, so that it
+    also times an older checkout, run from that checkout's directory."""
+    from motion324_tpu_torch.ops import rasterizer as ra
+    out = {}
+    for case, pos, size in cases:
         coeffs, bbox = ra.bin_faces(pos, faces, size, size)
         run = lambda: ra.raster_kernel(coeffs, bbox, size, size)
         plain = lambda: ra.raster_reference(coeffs, bbox, size, size)
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        diff = int((got != want).sum())
+        diff = int((run() != plain()).sum())
+        ms = time_ms(torch, run)
+        # the profiler can miss the kernel late in a long run: then the
+        # device time reads "not measured", never 0
+        dev = [t for k, t in device_ms(torch, run).items()
+               if "raster_kernel" in k]
+        dev_ms = f"{sum(dev):.4f}" if dev else "not measured"
+        plain_ms = time_ms(torch, plain, n=1, reps=3)
+        log(f"  rasterize {case}: kernel {ms:.4f} ms (device {dev_ms}), "
+            f"plain {plain_ms:.4f} ms, findices differing {diff}")
+        out[case] = (ms, plain_ms, diff)
+    return out
+
+
+def k8_rows(torch, renderer, cases, seed: int) -> tuple[list, list]:
+    """K8 at the front view (512^2) and the UV atlas (2 048^2) of the
+    unwrapped mesh: bit for bit against the plain version, timed beside it.
+    The bound is the larger of the bytes (coefficients and chunk bboxes
+    read, 4 B of findices per pixel written) and the work the inputs need:
+    10 f32 operations (beta and gamma, 2 multiplies and 2 adds each, and
+    alpha, 2 subtracts) per pixel centre inside each valid face's screen
+    bbox (``bbox_pairs``), at the f32 rate. Beside it the binned tests (``binned_pairs``) and the
+    pairs that K8's cull keeps as its plain mirror counts them
+    (``face_cull_reference`` per 32-pixel run, what K8 tests, and per
+    128-pixel group, its first stage; K8's own lists are not read back).
+    The sliver mesh (tests/raster_meshes.py) at 512^2, 333 x 97 and
+    1 100 x 3 (K8's launch of one group a block) and 1 100 x 477 (four
+    groups a block) bit for bit. The faults run on the front view with
+    every face doubled (each covered pixel a tie). Returns (rows,
+    problems)."""
+    from motion324_tpu_torch.ops import rasterizer as ra
+    faces = renderer._faces
+    rows, problems = [], []
+    times = raster_times(torch, cases, faces)
+    for case, pos, size in cases:
+        coeffs, bbox = ra.bin_faces(pos, faces, size, size)
+        want = ra.raster_reference(coeffs, bbox, size, size)
+        ms, plain_ms, diff = times[case]
         if diff:
             problems.append(f"K8 {case}: {diff} findices differ from the plain "
                             f"version")
-        pairs = ra.binned_pairs(bbox, size, size)
-        ms = time_ms(torch, run)
-        plain_ms = time_ms(torch, plain, n=1, reps=3)
-        t_ops = 10.0 * pairs / PEAK_FLOPS["float32"] * 1e3
+        binned = ra.binned_pairs(bbox, size, size)
+        kept = len(ra.face_cull_reference(coeffs, bbox, size, size))
+        kept_group = len(ra.face_cull_reference(coeffs, bbox, size, size,
+                                                ra.GROUP_PX))
+        needed = ra.bbox_pairs(pos, faces, size, size)
+        t_ops = 10.0 * needed / PEAK_FLOPS["float32"] * 1e3
         t_bytes = 4.0 * (coeffs.numel() + bbox.numel() + size * size) / PEAK_BYTES * 1e3
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         log(f"  rasterize {case}: {faces.shape[0]} faces in {bbox.shape[0]} "
-            f"chunks, {pairs:.4e} binned pair tests, covered "
-            f"{(want > 0).float().mean().item():.4f}, findices differing "
-            f"{diff}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+            f"chunks, covered {(want > 0).float().mean().item():.4f}; pairs: "
+            f"binned {binned}, kept by the cull's plain mirror "
+            f"{kept * ra.RUN_PX} (runs of {ra.RUN_PX}; per 128-pixel group "
+            f"{kept_group * ra.GROUP_PX}), in "
+            f"face bboxes {needed}; bound {bound_ms:.4f} ms ({bound_by}; "
+            f"operations {t_ops:.4f}, bytes {t_bytes:.4f}; the uncontracted "
+            f"test runs at most half of the f32 peak); the binned tests at "
+            f"10 operations {10.0 * binned / PEAK_FLOPS['float32'] * 1e3:.4f} ms")
         rows.append(dict(kernel="rasterize", case=case, dtype="int32", main=True,
                          max_abs_err=float(diff), ms=ms, plain_ms=plain_ms,
                          library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+    # slivers: near-degenerate faces whose rounded test passes outside
+    # their bbox, invalid faces, signed zeros, w < 0, off screen
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("raster_meshes", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "raster_meshes.py"))
+    meshes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(meshes)
+    pos, sliver_faces = (t.cuda() for t in meshes.sliver_mesh(seed, 3000))
+    for w, h in ((PAINT_RES, PAINT_RES), (333, 97), (1100, 3), (1100, 477)):
+        coeffs, bbox = ra.bin_faces(pos, sliver_faces, w, h)
+        want = ra.raster_reference(coeffs, bbox, w, h)
+        n = int((ra.raster_kernel(coeffs, bbox, w, h) != want).sum())
+        log(f"  rasterize slivers {w}x{h}: {sliver_faces.shape[0]} faces, "
+            f"covered {(want > 0).float().mean().item():.4f}, findices "
+            f"differing {n}")
+        if n:
+            problems.append(f"K8 slivers {w}x{h}: {n} findices differ")
     # ties: every face twice, so the lower id must win each covered pixel
+    clip, res = cases[0][1], cases[0][2]
     doubled = torch.cat([faces, faces])
-    coeffs, bbox = ra.bin_faces(clip, doubled, renderer.resolution,
-                                renderer.resolution)
-    want = ra.raster_reference(coeffs, bbox, renderer.resolution,
-                               renderer.resolution)
-    got = ra.raster_kernel(coeffs, bbox, renderer.resolution, renderer.resolution)
+    coeffs, bbox = ra.bin_faces(clip, doubled, res, res)
+    want = ra.raster_reference(coeffs, bbox, res, res)
+    got = ra.raster_kernel(coeffs, bbox, res, res)
     if not torch.equal(got, want) or int(want.max()) > faces.shape[0]:
         problems.append("K8 with doubled faces: not the plain version's "
                         "findices, or a tie went to the higher id")
-    for name, out in k8_faults(torch, ra, coeffs, bbox, renderer.resolution,
-                               renderer.resolution, want).items():
+    for name, out in k8_faults(torch, ra, coeffs, bbox, res, res, want).items():
         n = int((out != want).sum())
         log(f"  injected fault, {name}: {n} findices differ from the plain "
             f"version{'' if n else ' (NOT caught)'}")
         if not n:
             problems.append(f"the bit-for-bit check misses: {name}")
     return rows, problems
+
+
+def phase_raster(torch, seed: int) -> list[dict]:
+    """K8 alone on the paint path's two calls (``k8_rows``), from the paint
+    phase's renderer and no diffusion model. Returns the rows."""
+    renderer, cases = raster_cases(torch)
+    rows, problems = k8_rows(torch, renderer, cases, seed)
+    del renderer, cases
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return rows
 
 
 def paint_agreement(torch, mv, renderer, image, seed: int) -> list[str]:
@@ -2074,7 +2158,7 @@ def paint_agreement(torch, mv, renderer, image, seed: int) -> list[str]:
     return problems
 
 
-def phase_paint(torch, seed: int) -> tuple[dict, list]:
+def phase_paint(torch, seed: int) -> dict:
     from motion324_tpu_torch.hy3dgen.paint_diffusion import MultiviewDiffusion
     from motion324_tpu_torch.hy3dgen.paint_pipeline import PaintPipeline
     from motion324_tpu_torch.ops import flash_attention as fa
@@ -2140,8 +2224,6 @@ def phase_paint(torch, seed: int) -> tuple[dict, list]:
             sites.setdefault(key, n)   # the Euler paint's counts first
         del records
     renderer = pipe.renderer(out)
-    rows, k8_problems = k8_rows(torch, renderer, seed)
-    problems += k8_problems
     problems += paint_agreement(torch, mv, renderer, image, seed)
     pipe.multiview_model = turbo
     profile_step(torch, lambda: pipe(mesh, image), what="turbo paint",
@@ -2150,7 +2232,7 @@ def phase_paint(torch, seed: int) -> tuple[dict, list]:
     torch.cuda.empty_cache()
     if problems:
         raise AssertionError("; ".join(problems))
-    return sites, rows
+    return sites
 
 
 # K9 shapes as (kernel, case, B*H slices, Sq, Sk, on the path, dtypes). The
@@ -2962,11 +3044,11 @@ def main(argv=None) -> int:
     phase_batch(torch, args.seed, repo)
     header("shape path: ShapeGenPipeline, release width, bf16")
     launches.update(phase_shape(torch, args.seed))
+    header("K8 (rasterizer) against its plain version")
+    rows += phase_raster(torch, args.seed)
     header("paint path: PaintPipeline with MultiviewDiffusion, release width, "
            "bf16")
-    paint_sites, paint_rows = phase_paint(torch, args.seed)
-    launches.update(paint_sites)
-    rows += paint_rows
+    launches.update(phase_paint(torch, args.seed))
     header("done")
 
     kernels = []

@@ -18,7 +18,11 @@ bottom of their screen bbox, chunks of ``BLOCK_F`` faces with a bbox each,
 and flat pixel tiles of ``BLOCK_PX`` pixels that skip the chunks whose bbox
 misses them (:func:`bin_faces`). The tiles and chunks decide which (pixel,
 face) pairs are tested at all, so both versions use the same ones: the
-result is the kernel's function bit for bit, sliver faces included.
+result is the kernel's function bit for bit, sliver faces included. Inside
+that relation the kernel also culls, per run of ``RUN_PX`` pixels, the
+faces whose rounded test fails at every pixel of the run; the cull is
+exact, so the result does not change. :func:`face_cull_reference` is that
+cull in torch, for the tests and the smoke.
 
 :func:`rasterize` launches K8 on a CUDA tensor (counted in
 ``rasterize.launches``) and computes :func:`raster_reference` on a CPU
@@ -37,11 +41,14 @@ from motion324_tpu_torch.ops import _build
 
 __all__ = ["rasterize", "rasterize_reference", "raster_reference",
            "screen_coefficients", "bin_faces", "barycentrics", "interpolate",
-           "binned_pairs", "BLOCK_PX", "BLOCK_F"]
+           "binned_pairs", "bbox_pairs", "face_cull_reference",
+           "BLOCK_PX", "BLOCK_F", "GROUP_PX", "RUN_PX"]
 
 BIG_Z = 2 ** 30
 BLOCK_PX = 1024   # pixels per tile (flat, row-major)
 BLOCK_F = 256     # faces per chunk
+GROUP_PX = 128    # pixels per group of K8: one warp, 4 pixels a lane
+RUN_PX = 32       # pixels per run: K8 culls per run (lane pixel i, run i)
 _ZSCALE = float(2 << 17)
 _lib: ctypes.CDLL | None = None
 
@@ -136,6 +143,87 @@ def binned_pairs(bbox: torch.Tensor, width: int, height: int) -> int:
     return int(_tile_overlap(bbox, width, n_tiles).sum()) * BLOCK_PX * BLOCK_F
 
 
+def bbox_pairs(pos: torch.Tensor, faces: torch.Tensor, width: int,
+               height: int) -> int:
+    """The (pixel, face) pairs the function needs tested: for each valid face
+    (nonzero f32 area, as :func:`screen_coefficients` decides), the pixel
+    centres inside its screen bbox, clipped to the image. This is the work of
+    the reference's own per-face loop, whoever implements it."""
+    pos = torch.as_tensor(pos, dtype=torch.float32)
+    faces = torch.as_tensor(faces, device=pos.device).long()
+    valid = screen_coefficients(pos, faces, width, height)[9] > 0.5
+    x, y, _, _ = _screen_transform(pos, width, height)
+    fx, fy = x[faces], y[faces]
+
+    def centres(lo, hi, n):
+        # integer c in [0, n) with lo <= c + 0.5 <= hi; NaN counts none
+        first = torch.ceil(lo - 0.5).clamp(min=0)
+        last = torch.floor(hi - 0.5).clamp(max=n - 1)
+        return torch.nan_to_num((last - first + 1).clamp(min=0), nan=0.0)
+    count = (centres(fx.amin(1), fx.amax(1), width).double()
+             * centres(fy.amin(1), fy.amax(1), height).double())
+    return int(count[valid].sum())
+
+
+def _run_rects(width: int, n_runs: int, run_px: int, device) -> tuple:
+    """K8's rectangle of pixel centres per run of ``run_px`` flat pixels:
+    ``(x_lo, x_hi, y_lo, y_hi)`` f32, the run's columns in its row, or the
+    full width where the run wraps a row."""
+    first = torch.arange(n_runs, device=device) * run_px
+    last = first + run_px - 1
+    r0, r1 = first // width, last // width
+    one_row = r0 == r1
+    x_lo = torch.where(one_row, first % width, torch.zeros_like(first))
+    x_hi = torch.where(one_row, last % width, torch.full_like(last, width - 1))
+    return (x_lo.float() + 0.5, x_hi.float() + 0.5, r0.float() + 0.5,
+            r1.float() + 0.5)
+
+
+def face_cull_reference(coeffs: torch.Tensor, bbox: torch.Tensor, width: int,
+                        height: int, run_px: int = RUN_PX) -> torch.Tensor:
+    """The plain version of K8's cull: ``(K, 2)`` int64 rows ``(run,
+    column)``, the faces (columns of ``coeffs``) that K8 keeps for each run
+    of ``run_px`` flat pixels (``RUN_PX``, what K8 tests; ``GROUP_PX``,
+    the first stage of its cull, per group), among the chunks whose bbox meets the run's tile. With
+    the kernel's rounding: beta and gamma at the two opposite corners of the
+    run's rectangle that the signs of their coefficients pick, alpha's
+    bounds from them, and a face dropped only when it is invalid or a bound
+    lies outside [0, 1] by an ordered comparison (false on NaN). Rows sorted
+    by run, then column."""
+    n_tiles = -(-width * height // BLOCK_PX)
+    per_tile = BLOCK_PX // run_px
+    overlap = _tile_overlap(bbox, width, n_tiles)
+    x_lo, x_hi, y_lo, y_hi = (r[:, None] for r in _run_rects(
+        width, n_tiles * per_tile, run_px, coeffs.device))
+    sub = torch.arange(per_tile, device=coeffs.device)
+    kept = []
+    for c in range(bbox.shape[0]):
+        tiles = overlap[:, c].nonzero()[:, 0]
+        if tiles.numel() == 0:
+            continue
+        runs = (tiles[:, None] * per_tile + sub).reshape(-1)
+        cc = coeffs[:, c * BLOCK_F:(c + 1) * BLOCK_F]
+        xl, xh, yl, yh = x_lo[runs], x_hi[runs], y_lo[runs], y_hi[runs]
+
+        def corners(a, b, c0):
+            xa, xb = torch.where(a >= 0, xh, xl), torch.where(a >= 0, xl, xh)
+            ya, yb = torch.where(b >= 0, yh, yl), torch.where(b >= 0, yl, yh)
+            return (a * xa + b * ya) + c0, (a * xb + b * yb) + c0
+        b_hi, b_lo = corners(cc[0], cc[1], cc[2])
+        g_hi, g_lo = corners(cc[3], cc[4], cc[5])
+        a_lo = (1.0 - b_hi) - g_hi
+        a_hi = (1.0 - b_lo) - g_lo
+        drop = ((b_hi < 0) | (b_lo > 1) | (g_hi < 0) | (g_lo > 1) | (a_hi < 0)
+                | (a_lo > 1))
+        keep = (cc[9] > 0.5) & ~drop
+        r, f = keep.nonzero(as_tuple=True)
+        kept.append(torch.stack([runs[r], f + c * BLOCK_F], 1))
+    if not kept:
+        return torch.zeros((0, 2), dtype=torch.int64, device=coeffs.device)
+    out = torch.cat(kept)
+    return out[torch.argsort(out[:, 0] * coeffs.shape[1] + out[:, 1])]
+
+
 def raster_reference(coeffs: torch.Tensor, bbox: torch.Tensor, width: int,
                      height: int, tiles_per_pass: int = 64) -> torch.Tensor:
     """The plain version of K8: ``findices`` ``(H*W,)`` int32 from the binned
@@ -200,17 +288,17 @@ def raster_kernel(coeffs: torch.Tensor, bbox: torch.Tensor, width: int,
         raise TypeError("the K8 kernel takes float32 coefficients and bboxes")
     n_chunks = bbox.shape[0]
     if (coeffs.shape != (11, n_chunks * BLOCK_F) or bbox.shape != (n_chunks, 4)
-            or not coeffs.is_contiguous() or not bbox.is_contiguous()):
+            or not coeffs.is_contiguous() or not bbox.is_contiguous()
+            or bbox.data_ptr() % 16):
         raise ValueError(f"K8 takes contiguous coeffs (11, chunks*{BLOCK_F}) "
-                         f"and bboxes (chunks, 4), got {tuple(coeffs.shape)}, "
-                         f"{tuple(bbox.shape)}")
+                         f"and 16-byte aligned bboxes (chunks, 4), got "
+                         f"{tuple(coeffs.shape)}, {tuple(bbox.shape)}")
     n_pix = width * height
     out = torch.empty(n_pix, dtype=torch.int32, device=coeffs.device)
     with torch.cuda.device(coeffs.device):
         rc = _load().m324_rasterize(
             coeffs.data_ptr(), bbox.data_ptr(), out.data_ptr(), width, n_pix,
-            n_chunks, n_chunks * BLOCK_F,
-            torch.cuda.current_stream(coeffs.device).cuda_stream)
+            n_chunks, n_chunks * BLOCK_F, torch.cuda.current_stream(coeffs.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rasterize launch failed: CUDA error {rc}")
     rasterize.launches += 1

@@ -26,9 +26,10 @@ from motion324_tpu_torch.ops.folded_attention import (
     folded_attention_bwd_reference, folded_attention_reference)
 from motion324_tpu_torch.ops.masked_attention import (
     masked_attention_reference, masked_flash_attention)
-from motion324_tpu_torch.ops.rasterizer import (bin_faces, raster_reference,
-                                                rasterize)
+from motion324_tpu_torch.ops.rasterizer import (
+    bin_faces, raster_kernel, raster_reference, rasterize)
 from motion324_tpu_torch.ops import short_attention as sa
+from raster_meshes import sliver_mesh
 
 
 @pytest.fixture
@@ -614,11 +615,25 @@ def _mesh(seed: int, n_faces: int, n_verts: int):
 
 # K8 is held to its plain version bit for bit: the same binned inputs, the
 # same f32 rounding of the inside test and the depth, the same tie-break.
+# The sliver mesh (tests/raster_meshes.py) has faces whose rounded
+# test passes outside their bbox, invalid faces, signed-zero coefficients,
+# w < 0 and faces off screen; 333 x 97 wraps K8's runs and groups over rows,
+# 1 100 x 3 has tiles shorter than a row.
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,h,n_faces", [(48, 48, 300), (512, 512, 5000),
-                                         (2048, 40, 3000), (333, 97, 700)])
-def test_cuda_rasterize_matches_plain_bit_for_bit(cuda, w, h, n_faces):
-    pos, faces = _mesh(w + n_faces, n_faces, n_faces // 2)
+@pytest.mark.parametrize("w,h,n_faces,mesh", [
+    (48, 48, 300, "random"), (512, 512, 5000, "random"),
+    (2048, 40, 3000, "random"), (333, 97, 700, "random"),
+    (1100, 3, 300, "random"), (48, 48, 600, "sliver"),
+    (512, 512, 3000, "sliver"), (333, 97, 3000, "sliver"),
+    (1100, 3, 3000, "sliver")],
+    ids=["48-48-300", "512-512-5000", "2048-40-3000", "333-97-700",
+         "1100-3-300", "sliver-48-48", "sliver-512-512", "sliver-333-97",
+         "sliver-1100-3"])
+def test_cuda_rasterize_matches_plain_bit_for_bit(cuda, w, h, n_faces, mesh):
+    if mesh == "sliver":
+        pos, faces = sliver_mesh(w + h, n_faces)
+    else:
+        pos, faces = _mesh(w + n_faces, n_faces, n_faces // 2)
     pos, faces = pos.to(cuda), faces.to(cuda)
     before = rasterize.launches
     find, bary = rasterize(pos, faces, w, h)
@@ -629,6 +644,24 @@ def test_cuda_rasterize_matches_plain_bit_for_bit(cuda, w, h, n_faces):
     assert find.dtype == torch.int32 and find.shape == (h, w)
     assert torch.equal(find, want)
     assert (find > 0).float().mean().item() > 0.1
+
+
+# K8 has two launches, picked by the image's count of 128-pixel groups: a
+# group of 4 warps a block below 4 096 groups, 4 groups of one warp a block
+# from there on. Both give the plain version's findices on the sliver mesh,
+# with groups inside rows (512 wide) and wrapping rows (333 and 1 100 wide).
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", [(512, 512), (333, 97), (1024, 512),
+                                 (1100, 477)],
+                         ids=["2048-groups", "wrapping-256-groups",
+                              "4096-groups", "wrapping-4104-groups"])
+def test_cuda_rasterize_launches_match_plain(cuda, w, h):
+    for seed in range(3):
+        pos, faces = sliver_mesh(seed, 3000)
+        coeffs, bbox = bin_faces(pos.to(cuda), faces.to(cuda), w, h)
+        got = raster_kernel(coeffs, bbox, w, h)
+        torch.cuda.synchronize()
+        assert torch.equal(got, raster_reference(coeffs, bbox, w, h))
 
 
 # K9 forward: the same softmax as its plain version with P rounded against
