@@ -84,6 +84,16 @@ Phases, each of which raises on failure (exit code non-zero):
    mask against the f32 one; clips/s at B = 1 and B = 4 (decode chunk 6
    and 12); U2Net and ISNet ms per 224^2 frame.
 
+13. video-only (after the paint path): video_only.run, the port's
+   4D_from_video product path, on a seeded 16-frame 512^2 .npy clip at
+   release width (the shape phase's pipeline and the paint phase's
+   MultiviewDiffusion, Euler; a new release-width motion model in bf16):
+   the exact launches by call site (the shape, paint and motion paths'
+   counts added up), every K8 call bit for bit, seconds by stage, the
+   animated GLB (a 2 048^2 PNG texture, decoded without PIL) and FBX read
+   back with the port's loaders, and the atlas's PNG encode at zlib levels
+   1, 3, 6 and 9.
+
 12. K8 (before the paint path): the paint phase's renderer alone (no
    diffusion model); K8 at the 512^2 front view and the 2 048^2 UV atlas,
    bit for bit against its plain version at every launch configuration,
@@ -754,11 +764,17 @@ def short_site(q, k) -> str:
     return "local" if sq == sk == 324 else "global"
 
 
-# launches per clip by (kernel, call site): the shape encoder (64 queries x
-# 16 384 keys) and 2 windows x 8 global layers on K1; 2 x 8 local layers and
-# 2 x 12 DINOv2 layers on K2; no LSE variant and no backward
-CLIP_LAUNCHES = {("flash_fwd", "shape_encoder"): 1, ("flash_fwd", "global"): 16,
-                 ("folded_fwd", "local"): 16, ("folded_fwd", "dino"): 24}
+def motion_launches(windows: int) -> dict:
+    """Launches of MotionPipeline.predict by (kernel, call site): the shape
+    encoder (64 queries over the shape samples) once, then per window 8
+    global layers on K1, 8 local and 12 DINOv2 layers on K2; no LSE
+    variant and no backward."""
+    return {("flash_fwd", "shape_encoder"): 1, ("flash_fwd", "global"): 8 * windows,
+            ("folded_fwd", "local"): 8 * windows, ("folded_fwd", "dino"): 12 * windows}
+
+
+# launches per clip: 16 frames in 2 windows of 12
+CLIP_LAUNCHES = motion_launches(2)
 
 
 def set_layer_scale(torch, model, seed: int) -> None:
@@ -1463,9 +1479,7 @@ def build_shape_pipeline(torch, seed: int):
     median logit is 0; the
     seeded image, and the stages run once by hand on it (the warm-up), as
     the pipeline runs them: returns (pipe, image, stage inputs)."""
-    from motion324_tpu_torch.hy3dgen.scheduler import flow_match_sigmas
     from motion324_tpu_torch.hy3dgen.shape_pipeline import ShapeGenPipeline
-    from motion324_tpu_torch.hy3dgen.volume import decode_volume
 
     t0 = time.perf_counter()
     pipe = ShapeGenPipeline.init_random(
@@ -1480,29 +1494,42 @@ def build_shape_pipeline(torch, seed: int):
         f" B, ShapeVAE decoder {count(pipe.vae):.3f} B bf16 parameters")
     image = synthetic_image(seed)
     t0 = time.perf_counter()
+    inp = center_logits(torch, pipe, image, seed, SHAPE_STEPS)
+    log(f"  stages by hand (warm-up) {time.perf_counter() - t0:.2f} s; "
+        f"{inp['note']}")
+    return pipe, image, inp
+
+
+def center_logits(torch, pipe, image, seed: int, steps: int) -> dict:
+    """Run the pipeline's stages by hand on ``image`` with the noise that
+    ``pipe(image, seed=seed)`` draws, and shift the ShapeVAE's output_proj
+    bias so that the coarse grid's median logit is 0 (half the box inside):
+    a random VAE's logits need not cross 0, and then the mesh is empty.
+    Returns the stages' inputs and outputs and a note of the logits."""
+    from motion324_tpu_torch.hy3dgen.scheduler import flow_match_sigmas
+    from motion324_tpu_torch.hy3dgen.volume import decode_volume
+    dev = pipe.device
     img = pipe.prepare_image(image)
     cond = pipe.encode_cond(img)
     cond_pair = torch.cat([cond, torch.zeros_like(cond)])
-    noise = torch.randn(1, pipe.num_latents, pipe.latent_dim, device="cuda",
-                        generator=torch.Generator("cuda").manual_seed(seed))
-    sigmas = flow_match_sigmas(SHAPE_STEPS)
+    noise = torch.randn(1, pipe.num_latents, pipe.latent_dim, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    sigmas = flow_match_sigmas(steps)
     latents = pipe.denoise(noise, cond_pair, sigmas, 5.0)
     processed = pipe.vae_decode(latents)
     coarse, n_coarse = decode_volume(pipe.vae.query, processed, 96)
-    # a random VAE's logits need not cross 0: shift output_proj's bias so
-    # that the coarse grid's median logit is 0 (half the box inside)
     med = float(np.median(coarse))
     with torch.no_grad():
         pipe.vae.geo_decoder.output_proj.bias -= med
     spread = np.percentile(coarse - med, [5, 50, 95])
-    log(f"  stages by hand (warm-up) {time.perf_counter() - t0:.2f} s; "
-        f"coarse 97^3 grid in {n_coarse} chunks: median logit {med:.4f} "
-        f"moved to 0 through output_proj's bias; logit percentiles 5/50/95 "
-        f"{np.round(spread, 4).tolist()}, share within the refinement band "
-        f"|logit| < 4: {float(np.mean(np.abs(coarse - med) < 4)):.4f}")
-    return pipe, image, dict(img=img, cond_pair=cond_pair, noise=noise,
-                             sigmas=sigmas, latents=latents,
-                             processed=processed, n_coarse=n_coarse)
+    note = (f"coarse 97^3 grid in {n_coarse} chunks: median "
+            f"logit {med:.4f} moved to 0 through output_proj's bias; logit "
+            f"percentiles 5/50/95 {np.round(spread, 4).tolist()}, share "
+            f"within the refinement band |logit| < 4: "
+            f"{float(np.mean(np.abs(coarse - med) < 4)):.4f}")
+    return dict(img=img, cond_pair=cond_pair, noise=noise, sigmas=sigmas,
+                latents=latents, processed=processed, n_coarse=n_coarse,
+                note=note)
 
 
 def shape_stage_outputs(torch, pipe, inp, steps: int) -> tuple[dict, list]:
@@ -1614,7 +1641,9 @@ def shape_agreement(torch, pipe, inp) -> list[str]:
     return problems
 
 
-def phase_shape(torch, seed: int) -> dict:
+def phase_shape(torch, seed: int, keep: dict | None = None) -> dict:
+    """The shape path; with ``keep`` a dict, the pipeline is left in
+    ``keep["shape"]`` for the video-only phase instead of being freed."""
     from motion324_tpu_torch.hy3dgen.postprocess import (reduce_faces,
                                                          remove_degenerate,
                                                          remove_floaters)
@@ -1683,6 +1712,8 @@ def phase_shape(torch, seed: int) -> dict:
     profile_step(torch, lambda: pipe(image, **call), what="mesh generation",
                  host_ops=False)
     problems += shape_agreement(torch, pipe, inp)
+    if keep is not None:
+        keep["shape"] = pipe
     del pipe, inp
     torch.cuda.empty_cache()
     if problems:
@@ -2158,7 +2189,9 @@ def paint_agreement(torch, mv, renderer, image, seed: int) -> list[str]:
     return problems
 
 
-def phase_paint(torch, seed: int) -> dict:
+def phase_paint(torch, seed: int, keep: dict | None = None) -> dict:
+    """The paint path; with ``keep`` a dict, the MultiviewDiffusion model is
+    left in ``keep["mv"]`` for the video-only phase."""
     from motion324_tpu_torch.hy3dgen.paint_diffusion import MultiviewDiffusion
     from motion324_tpu_torch.hy3dgen.paint_pipeline import PaintPipeline
     from motion324_tpu_torch.ops import flash_attention as fa
@@ -2228,11 +2261,201 @@ def phase_paint(torch, seed: int) -> dict:
     pipe.multiview_model = turbo
     profile_step(torch, lambda: pipe(mesh, image), what="turbo paint",
                  host_ops=False)
+    if keep is not None:
+        keep["mv"] = mv
     del pipe, mv, renderer
     torch.cuda.empty_cache()
     if problems:
         raise AssertionError("; ".join(problems))
     return sites
+
+
+VIDEO_FRAMES = 16
+VIDEO_SIZE = 512
+PNG_LEVELS = (1, 3, 6, 9)
+
+
+def textured_clip(seed: int, frames: int = VIDEO_FRAMES,
+                  size: int = VIDEO_SIZE) -> np.ndarray:
+    """A striped, lit disc (radius size / 5) circling over a flat dark
+    background with a little noise, (frames, size, size, 3) uint8: the
+    border segmentation keeps the disc, and the painter has a texture to
+    project."""
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:size, :size].astype(np.float32)
+    color = r.randint(120, 230, size=3).astype(np.float32)
+    out = np.empty((frames, size, size, 3), np.uint8)
+    for t in range(frames):
+        ang = 2 * np.pi * t / frames
+        cy = size / 2 + 0.1 * size * np.sin(ang)
+        cx = size / 2 + 0.1 * size * np.cos(ang)
+        d2 = ((yy - cy) ** 2 + (xx - cx) ** 2) / (0.2 * size) ** 2
+        shade = (0.75 + 0.25 * np.sin((xx - cx) / 9.0 + ang)) * (1.1 - 0.4 * d2)
+        frame = 20 + r.randint(0, 4, size=(size, size, 3)).astype(np.float32)
+        disc = d2 < 1
+        frame[disc] = (color * shade[..., None])[disc]
+        out[t] = np.clip(frame, 0, 255)
+    return out
+
+
+def png_encode_times(atlas) -> None:
+    """The painted atlas through encode_png at each zlib level: seconds
+    (median of 3) and bytes, and decode_png's seconds, on this host."""
+    from motion324_tpu_torch.io.png import ZLIB_LEVEL, decode_png, encode_png
+    pixels = (np.clip(atlas, 0, 1) * 255).astype(np.uint8)
+    parts = []
+    for level in PNG_LEVELS:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            data = encode_png(pixels, level)
+            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back = decode_png(data)
+        decode_s = time.perf_counter() - t0
+        if not np.array_equal(back, pixels):
+            raise AssertionError(f"decode_png(encode_png(atlas, {level})) is "
+                                 f"not the atlas")
+        parts.append(f"level {level}{' (ZLIB_LEVEL)' if level == ZLIB_LEVEL else ''}"
+                     f": encode {np.median(times):.4f} s, {len(data)} bytes, "
+                     f"decode {decode_s:.4f} s")
+    log(f"  PNG of the {pixels.shape[0]}x{pixels.shape[1]} atlas (host): "
+        + "; ".join(parts))
+
+
+def read_back(out_dir: str, frames: int) -> None:
+    """Both animation files through the port's loaders; raises unless the
+    GLB holds ``frames`` finite morph frames and a 2 048^2 PNG texture that
+    decode_png reads, and the FBX the GLB's vertices, faces and ``frames``
+    blend shapes."""
+    from motion324_tpu_torch.io import glb as glb_io
+    from motion324_tpu_torch.io.fbx import load_fbx
+    from motion324_tpu_torch.io.png import decode_png
+    path = os.path.join(out_dir, "output_animation.glb")
+    base, faces, traj, _ = glb_io.load_animated_glb(path)
+    with open(path, "rb") as f:
+        gltf, binary = glb_io._read_chunks(f.read())
+    image, view = gltf["images"][0], gltf["bufferViews"][gltf["images"][0]["bufferView"]]
+    start = view.get("byteOffset", 0)
+    t0 = time.perf_counter()
+    tex = decode_png(binary[start:start + view["byteLength"]])
+    decode_s = time.perf_counter() - t0
+    doc = load_fbx(os.path.join(out_dir, "output_animation.fbx"))
+    problems = []
+    if traj.shape != (frames, len(base), 3) or not np.isfinite(traj).all():
+        problems.append(f"GLB trajectories {traj.shape}, finite "
+                        f"{np.isfinite(traj).all()}")
+    if image.get("mimeType") != "image/png" or tex.shape != (TEXTURE_SIZE, TEXTURE_SIZE, 3):
+        problems.append(f"GLB texture {image.get('mimeType')} {tex.shape}")
+    if not (np.allclose(doc["vertices"], base, atol=1e-6)
+            and np.array_equal(doc["faces"], faces)
+            and len(doc["shapes"]) == frames):
+        problems.append(f"FBX {doc['vertices'].shape} vertices, "
+                        f"{len(doc['shapes'])} blend shapes against the GLB's "
+                        f"{base.shape}, {frames}")
+    if problems:
+        raise AssertionError("read-back: " + "; ".join(problems))
+    log(f"  read back: GLB {len(base)} vertices, {len(faces)} faces, "
+        f"{frames} morph frames, PNG texture {tex.shape} decoded in "
+        f"{decode_s:.3f} s; FBX the same vertices and faces, "
+        f"{len(doc['shapes'])} blend shapes")
+
+
+def phase_video_only(torch, seed: int, keep: dict) -> None:
+    """The video-only product path (video_only.run) at release width on a
+    seeded 16-frame 512^2 .npy clip: the shape phase's pipeline and the
+    paint phase's MultiviewDiffusion (Euler, 30 steps), a new release-width
+    motion model in bf16; launches by call site against the three paths'
+    counts, every K8 call bit for bit, seconds by stage, the files read
+    back, the atlas's PNG at each zlib level."""
+    from motion324_tpu_torch import video_only
+    from motion324_tpu_torch.config import ModelConfig
+    from motion324_tpu_torch.hy3dgen.paint_pipeline import PaintPipeline
+    from motion324_tpu_torch.inference.pipeline import (MotionPipeline,
+                                                        load_video)
+    from motion324_tpu_torch.inference.preprocess import preprocess_video_frames
+    from motion324_tpu_torch.inference.windowing import window_starts
+    from motion324_tpu_torch.io.glb import load_glb
+    from motion324_tpu_torch.ops import flash_attention as fa
+    from motion324_tpu_torch.ops import folded_attention as fo
+    from motion324_tpu_torch.ops import rasterizer as ra
+
+    pipe = keep.pop("shape")
+    with tempfile.TemporaryDirectory() as tmp:
+        video = os.path.join(tmp, "clip.npy")
+        np.save(video, textured_clip(seed))
+        # the random ShapeVAE centred on this clip's frame 0 crop, as the
+        # shape phase centres it on its image (the crop is what run() passes)
+        t0 = time.perf_counter()
+        crops, _, _ = preprocess_video_frames(load_video(video), size=512)
+        note = center_logits(torch, pipe, crops[0], seed, SHAPE_STEPS)["note"]
+        log(f"  frame 0's crop by hand {time.perf_counter() - t0:.2f} s; {note}")
+        t0 = time.perf_counter()
+        cfg = ModelConfig(dtype=torch.bfloat16, decode_frames_chunk=12)
+        motion = MotionPipeline(cfg, window=12, seed=seed)
+        set_layer_scale(torch, motion.model, seed)
+        painter = PaintPipeline(multiview_model=keep.pop("mv"),
+                                resolution=PAINT_RES, texture_size=TEXTURE_SIZE,
+                                delight=True, device="cuda")
+        models = {"shape": pipe, "painter": painter, "motion": motion}
+        log(f"  motion model built in {time.perf_counter() - t0:.1f} s; the "
+            f"shape and paint phases' models reused; widths and the DiT's "
+            f"{SHAPE_STEPS} steps as released, no depth cut")
+        out = os.path.join(tmp, "out")
+        zero_launches(fa, fo)
+        records: list = []
+        by_site, undo = launch_spy(fa, fo, records)
+        t0 = time.perf_counter()
+        try:
+            rc = video_only.run(video, out, models, steps=SHAPE_STEPS,
+                                octree_resolution=384, max_faces=PAINT_FACES,
+                                recenter=False, seed=seed, device="cuda")
+        finally:
+            undo()
+        total = time.perf_counter() - t0
+        totals = read_launches(fa, fo)
+        run = video_only.last_run
+        if rc != 0:
+            raise AssertionError(f"video_only.run returned {rc}: {run}")
+        windows = len(window_starts(VIDEO_FRAMES, 12)) or 1
+        want_sites: dict = {}
+        for part in (shape_launches(pipe.last_run["query_chunks"]),
+                     paint_launches(False), motion_launches(windows)):
+            for key, n in part.items():
+                want_sites[key] = want_sites.get(key, 0) + n
+        want_totals = dict.fromkeys(totals, 0)
+        for (k, _), n in want_sites.items():
+            want_totals[k] += n
+        log(f"  one video-only run: {total:.3f} s, {run['frames']} frames, "
+            f"{run['raw_faces']} faces generated, {run['vertices']} vertices "
+            f"and {run['faces']} faces painted; {windows} motion windows; "
+            f"{pipe.last_run['query_chunks']} volume-query chunks; launches "
+            f"{totals}; by call site {dict(sorted(by_site.items()))}")
+        for stage, secs in run["seconds"].items():
+            log(f"    {stage:15s} {secs:8.4f} s")
+        log("  the shape stage: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in pipe.last_run["seconds"].items()))
+        paint = painter.last_run
+        log(f"  the paint stage: atlas baked {paint['baked']:.4f}, covered "
+            f"after the inpaint {paint['coverage']:.4f}; "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in paint["seconds"].items()))
+        problems = []
+        if totals != want_totals or by_site != want_sites:
+            problems.append(f"video-only launches {totals} / {by_site}, "
+                            f"expected {want_totals} / {want_sites}")
+        bad = [f"{w}x{h}" for coeffs, bbox, w, h, got in records
+               if not torch.equal(got, ra.raster_reference(coeffs, bbox, w, h))]
+        log(f"  {len(records)} K8 calls against the plain rasterizer, "
+            f"{len(bad)} not bit for bit")
+        if bad:
+            problems.append(f"video-only K8 findices differ at {bad}")
+        read_back(out, VIDEO_FRAMES)
+        png_encode_times(load_glb(os.path.join(out, "generated_mesh.glb"))
+                         ["texture"])
+    del pipe, painter, motion, models, records
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
 
 
 # K9 shapes as (kernel, case, B*H slices, Sq, Sk, on the path, dtypes). The
@@ -3042,13 +3265,17 @@ def main(argv=None) -> int:
     header("batch + segmentation: run_batch and predict_batch with U2Net in "
            "the graph")
     phase_batch(torch, args.seed, repo)
+    keep: dict = {}
     header("shape path: ShapeGenPipeline, release width, bf16")
-    launches.update(phase_shape(torch, args.seed))
+    launches.update(phase_shape(torch, args.seed, keep))
     header("K8 (rasterizer) against its plain version")
     rows += phase_raster(torch, args.seed)
     header("paint path: PaintPipeline with MultiviewDiffusion, release width, "
            "bf16")
-    launches.update(phase_paint(torch, args.seed))
+    launches.update(phase_paint(torch, args.seed, keep))
+    header("video-only path: video_only.run, preprocess -> shape -> paint -> "
+           "motion -> GLB + FBX, release width, bf16")
+    phase_video_only(torch, args.seed, keep)
     header("done")
 
     kernels = []

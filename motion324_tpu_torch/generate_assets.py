@@ -17,8 +17,8 @@ input image needs cv2; ``--no-recenter`` takes images as they are.
 :class:`~motion324_tpu_torch.hy3dgen.paint_pipeline.PaintPipeline`: the
 multiview diffusion model when ``--paint-unet`` and ``--paint-vae`` name
 released HunyuanPaint weights (torch state dicts in the diffusers layout),
-else the weight-free reprojection synthesizer. A textured GLB encodes its
-texture with PIL; without PIL the GLB is not written.
+else the weight-free reprojection synthesizer. The GLB stores the texture
+as PNG (:mod:`motion324_tpu_torch.io.png`, no PIL needed).
 """
 
 from __future__ import annotations
@@ -183,12 +183,6 @@ def main(argv=None, pipeline=None, painter=None) -> int:
         if args.texture:
             mesh = painter(mesh, cond_input.get("front", image)
                            if isinstance(cond_input, dict) else image)
-            try:
-                import PIL  # noqa: F401  (the texture's image encoder)
-            except ImportError:
-                print(f"{stem}: textured mesh of {len(mesh.faces)} faces; "
-                      f"no GLB written (encoding the texture needs PIL)")
-                continue
         export_glb(out, mesh.vertices, mesh.faces, uv=mesh.uv,
                    texture=mesh.texture)
         print(f"{stem}: wrote {out} ({len(mesh.vertices)} vertices, "

@@ -1,4 +1,4 @@
-"""GLB (binary glTF 2.0) reader and writer, dependency-free (numpy + PIL).
+"""GLB (binary glTF 2.0) reader and writer, dependency-free (numpy + zlib).
 
 Replaces two reference components with one host library:
 - mesh loading (the reference uses trimesh/pygltflib —
@@ -8,6 +8,14 @@ Replaces two reference components with one host library:
   interpolation and exports merged-mesh morph targets — utils/render.py:117-345).
   Here the same artefact — one mesh with T morph targets and a STEP-interpolated
   weights animation — is written directly as glTF, no Blender process needed.
+
+A texture is always written as PNG by :func:`motion324_tpu_torch.io.png.
+encode_png`, and a PNG texture (known by its signature) is read by its
+``decode_png``; PIL is imported only to read a texture of another type
+(JPEG). So a textured GLB is written
+and read where PIL is absent. The files differ from the JAX package's only
+in the image bytes: ``motion324_tpu/io/glb.py`` writes JPEG (quality 95) for
+atlases of 1 MPix and more, and PNG through PIL below that.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import struct
 from typing import Any
 
 import numpy as np
+
+from motion324_tpu_torch.io.png import decode_png, encode_png
 
 __all__ = ["load_glb", "export_glb", "export_animated_glb", "load_animated_glb"]
 
@@ -98,23 +108,27 @@ def _node_transform(node: dict) -> np.ndarray:
 
 
 def _decode_image(gltf: dict, binary: bytes, image_idx: int):
-    from PIL import Image
     img = gltf["images"][image_idx]
     if "bufferView" in img:
         view = gltf["bufferViews"][img["bufferView"]]
         start = view.get("byteOffset", 0)
         raw = binary[start:start + view["byteLength"]]
-        pil = Image.open(_io.BytesIO(raw))
     elif "uri" in img and img["uri"].startswith("data:"):
         import base64
         raw = base64.b64decode(img["uri"].split(",", 1)[1])
-        pil = Image.open(_io.BytesIO(raw))
     else:
         return None
-    if pil.mode not in ("RGB", "RGBA"):
-        pil = pil.convert("RGB")
-    arr = np.asarray(pil).astype(np.float32) / 255.0
-    return arr[..., :3]
+    if raw[:8] == b"\x89PNG\r\n\x1a\n":
+        arr = decode_png(raw)
+        if arr.shape[2] < 3:           # grey (+ alpha): grey to RGB
+            arr = np.repeat(arr[..., :1], 3, axis=2)
+    else:
+        from PIL import Image
+        pil = Image.open(_io.BytesIO(raw))
+        if pil.mode not in ("RGB", "RGBA"):
+            pil = pil.convert("RGB")
+        arr = np.asarray(pil)
+    return arr[..., :3].astype(np.float32) / 255.0
 
 
 def load_glb(path: str):
@@ -327,16 +341,12 @@ _TEX_ENCODE_CACHE: dict = {}
 
 
 def _encode_texture(texture) -> tuple[bytes, str]:
-    """Image-encode a texture atlas, memoised on content.
+    """PNG-encode a texture atlas (:func:`encode_png`), memoised on content.
 
-    PNG-encoding a 2048^2 atlas costs ~1 s of host time per export (it
-    dominated the product path's export phase); JPEG q95 is ~25x faster and
-    both are valid glTF mime types — PNG (lossless) is kept for small
-    textures. Even the JPEG encode is ~0.15 s and spikes to ~0.8 s under
-    host CPU contention, so repeated exports of the same atlas (every clip
-    of a video, every window of a batch) hit a small content-keyed cache:
-    the key combines a strided pixel subsample with a full-array checksum,
-    so any pixel change re-encodes.
+    Repeated exports of the same atlas (the generated mesh and its
+    animation, every clip of a batch) hit a small content-keyed cache: the
+    key combines a strided pixel subsample with a full-array checksum, so
+    any pixel change re-encodes.
     """
     t = np.asarray(texture)
     key = (t.shape, str(t.dtype), t[::109, ::113].tobytes(),
@@ -344,18 +354,11 @@ def _encode_texture(texture) -> tuple[bytes, str]:
     hit = _TEX_ENCODE_CACHE.get(key)
     if hit is not None:
         return hit
-    from PIL import Image
-    img = Image.fromarray((np.clip(t, 0, 1) * 255).astype(np.uint8))
-    buf = _io.BytesIO()
-    if img.width * img.height >= 1024 * 1024:
-        img.save(buf, format="JPEG", quality=95)
-        mime = "image/jpeg"
-    else:
-        img.save(buf, format="PNG")
-        mime = "image/png"
+    pixels = (t if t.dtype == np.uint8
+              else (np.clip(t, 0, 1) * 255).astype(np.uint8))
     if len(_TEX_ENCODE_CACHE) >= 4:
         _TEX_ENCODE_CACHE.pop(next(iter(_TEX_ENCODE_CACHE)))
-    _TEX_ENCODE_CACHE[key] = (buf.getvalue(), mime)
+    _TEX_ENCODE_CACHE[key] = (encode_png(pixels), "image/png")
     return _TEX_ENCODE_CACHE[key]
 
 

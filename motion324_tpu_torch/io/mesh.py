@@ -198,7 +198,8 @@ def _obj_texture(obj_path: str):
 
 
 def load_mesh(path: str) -> TriMesh:
-    """Load .glb/.gltf/.obj into a :class:`TriMesh` (world-space, merged)."""
+    """Load .glb/.gltf/.obj/.fbx into a :class:`TriMesh` (world-space,
+    merged)."""
     ext = os.path.splitext(path)[1].lower()
     if ext in (".glb", ".gltf"):
         from motion324_tpu_torch.io.glb import load_glb
@@ -211,4 +212,13 @@ def load_mesh(path: str) -> TriMesh:
                        normals=data.get("normals"))
     if ext == ".obj":
         return _load_obj(path)
+    if ext == ".fbx":
+        # reference loads generated meshes from FBX
+        # (inference_with_video_only.py:56-180, via bpy; ours is native)
+        from motion324_tpu_torch.io.fbx import load_fbx
+        data = load_fbx(path)
+        return TriMesh(vertices=np.asarray(data["vertices"], np.float32),
+                       faces=np.asarray(data["faces"], np.int64),
+                       uv=None if data["uv"] is None
+                       else np.asarray(data["uv"], np.float32))
     raise ValueError(f"unsupported mesh format: {ext}")

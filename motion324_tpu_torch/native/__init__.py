@@ -9,7 +9,11 @@
 - :func:`vertex_inpaint`: UV-seam vertex colour diffusion of a baked
   texture (texture generation), held against :func:`vertex_inpaint_numpy`;
 - :func:`inpaint_ns`: the Navier-Stokes hole fill of an RGB uint8 image by
-  fast marching, the semantics of ``cv2.inpaint(..., cv2.INPAINT_NS)``.
+  fast marching, the semantics of ``cv2.inpaint(..., cv2.INPAINT_NS)``;
+- :func:`murmur3_x64_128` and :func:`spooky_hash128`: the 128-bit hashes
+  of the Alembic writer (:mod:`motion324_tpu_torch.io.abc`), held against
+  the numpy versions :func:`murmur3_x64_128_numpy` and
+  :func:`spooky_hash128_numpy`.
 
 The sources here are the port's own copies. They are compiled at first use
 with ``g++ -O3 -shared -fPIC`` into ``motion324_tpu_torch/build/``, keyed by
@@ -26,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import struct
 import subprocess
 from pathlib import Path
 
@@ -33,12 +38,13 @@ import numpy as np
 
 __all__ = ["marching_cubes", "qem_simplify", "trilinear_upsample",
            "shell_indices", "vertex_inpaint", "vertex_inpaint_numpy",
-           "inpaint_ns", "build"]
+           "inpaint_ns", "murmur3_x64_128", "murmur3_x64_128_numpy",
+           "spooky_hash128", "spooky_hash128_numpy", "build"]
 
 _DIR = Path(__file__).resolve().parent
 _BUILD_DIR = _DIR.parent / "build"
 _SOURCES = ("marching_cubes.cpp", "qem_simplify.cpp", "trilinear.cpp",
-            "shell.cpp", "mesh_processor.cpp", "inpaint.cpp")
+            "shell.cpp", "mesh_processor.cpp", "inpaint.cpp", "hashes.cpp")
 _FLAGS = ["-O3", "-shared", "-fPIC"]
 _lib: ctypes.CDLL | None = None
 
@@ -80,9 +86,13 @@ def _get() -> ctypes.CDLL:
                                       ctypes.c_int32, p, ctypes.c_int64, p]
         lib.vertex_inpaint.argtypes = [p, p, i, i, i, p, i, p, i, p, p, i, p, p]
         lib.inpaint_ns.argtypes = [p, p, i, i, i, p]
+        u64 = ctypes.c_uint64
+        lib.murmur3_x64_128.argtypes = [p, u64, ctypes.c_uint32, p]
+        lib.spooky_hash128.argtypes = [p, u64, u64, u64, p]
         for fn in (lib.marching_tetrahedra, lib.qem_simplify,
                    lib.trilinear_upsample, lib.shell_indices,
-                   lib.vertex_inpaint, lib.inpaint_ns):
+                   lib.vertex_inpaint, lib.inpaint_ns, lib.murmur3_x64_128,
+                   lib.spooky_hash128):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -288,3 +298,210 @@ def inpaint_ns(image: np.ndarray, mask: np.ndarray, radius: int = 3) -> np.ndarr
     if rc != 0:
         raise RuntimeError(f"inpaint_ns failed with code {rc}")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# 128-bit hashes for Alembic sample keys / object hash trailers (io/abc.py)
+# --------------------------------------------------------------------------- #
+def _rotl64(x: int, r: int) -> int:
+    x &= 0xFFFFFFFFFFFFFFFF
+    return ((x << r) | (x >> (64 - r))) & 0xFFFFFFFFFFFFFFFF
+
+
+def murmur3_x64_128_numpy(data: bytes, seed: int = 0) -> bytes:
+    """Pure-Python MurmurHash3_x64_128 (Appleby, public domain), the plain
+    version of :func:`murmur3_x64_128`."""
+    M = 0xFFFFFFFFFFFFFFFF
+    c1, c2 = 0x87C37B91114253D5, 0x4CF5AD432745937F
+    h1 = h2 = seed & 0xFFFFFFFF
+    length = len(data)
+    nblocks = length // 16
+    if nblocks:
+        blocks = np.frombuffer(data[:nblocks * 16], "<u8").reshape(-1, 2)
+        for k1, k2 in blocks.tolist():
+            k1 = _rotl64(k1 * c1 & M, 31) * c2 & M
+            h1 = (_rotl64(h1 ^ k1, 27) + h2) & M
+            h1 = (h1 * 5 + 0x52DCE729) & M
+            k2 = _rotl64(k2 * c2 & M, 33) * c1 & M
+            h2 = (_rotl64(h2 ^ k2, 31) + h1) & M
+            h2 = (h2 * 5 + 0x38495AB5) & M
+    tail = data[nblocks * 16:]
+    k1 = k2 = 0
+    for i in range(min(len(tail), 16) - 1, 7, -1):
+        k2 |= tail[i] << (8 * (i - 8))
+    for i in range(min(len(tail), 8) - 1, -1, -1):
+        k1 |= tail[i] << (8 * i)
+    if len(tail) > 8:
+        h2 ^= _rotl64(k2 * c2 & M, 33) * c1 & M
+    if len(tail) > 0:
+        h1 ^= _rotl64(k1 * c1 & M, 31) * c2 & M
+    h1 ^= length
+    h2 ^= length
+    h1 = (h1 + h2) & M
+    h2 = (h2 + h1) & M
+
+    def fmix(k):
+        k ^= k >> 33
+        k = k * 0xFF51AFD7ED558CCD & M
+        k ^= k >> 33
+        k = k * 0xC4CEB9FE1A85EC53 & M
+        return k ^ (k >> 33)
+
+    h1, h2 = fmix(h1), fmix(h2)
+    h1 = (h1 + h2) & M
+    h2 = (h2 + h1) & M
+    return struct.pack("<QQ", h1, h2)
+
+
+def murmur3_x64_128(data: bytes, seed: int = 0) -> bytes:
+    """16-byte MurmurHash3_x64_128 digest (``hashes.cpp``): the hash
+    Alembic >= 1.5 computes for array/scalar sample keys (seed = the POD
+    byte size); :func:`murmur3_x64_128_numpy` is its plain version."""
+    return _hash128(_get().murmur3_x64_128, data, ctypes.c_uint32(seed))
+
+
+def _hash128(fn, data: bytes, *seeds) -> bytes:
+    buf = np.frombuffer(bytes(data), np.uint8)
+    out = np.empty(2, np.uint64)
+    rc = fn(_ptr(buf) if len(buf) else None, len(buf), *seeds, _ptr(out))
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed with code {rc}")
+    return out.tobytes()
+
+
+def spooky_hash128_numpy(data: bytes, seed1: int = 0, seed2: int = 0) -> bytes:
+    """Pure-Python SpookyHash V2 (Jenkins, public domain), 128-bit one-shot.
+
+    The plain version of :func:`spooky_hash128`, transcribed from the
+    published algorithm independently of ``hashes.cpp``.
+    """
+    M = 0xFFFFFFFFFFFFFFFF
+    SC = 0xDEADBEEFDEADBEEF
+    length = len(data)
+
+    if length < 192:
+        remainder = length % 32
+        a, b, c, d = seed1 & M, seed2 & M, SC, SC
+
+        def short_mix(h):
+            h[2] = (_rotl64(h[2], 50) + h[3]) & M; h[0] ^= h[2]
+            h[3] = (_rotl64(h[3], 52) + h[0]) & M; h[1] ^= h[3]
+            h[0] = (_rotl64(h[0], 30) + h[1]) & M; h[2] ^= h[0]
+            h[1] = (_rotl64(h[1], 41) + h[2]) & M; h[3] ^= h[1]
+            h[2] = (_rotl64(h[2], 54) + h[3]) & M; h[0] ^= h[2]
+            h[3] = (_rotl64(h[3], 48) + h[0]) & M; h[1] ^= h[3]
+            h[0] = (_rotl64(h[0], 38) + h[1]) & M; h[2] ^= h[0]
+            h[1] = (_rotl64(h[1], 37) + h[2]) & M; h[3] ^= h[1]
+            h[2] = (_rotl64(h[2], 62) + h[3]) & M; h[0] ^= h[2]
+            h[3] = (_rotl64(h[3], 34) + h[0]) & M; h[1] ^= h[3]
+            h[0] = (_rotl64(h[0], 5) + h[1]) & M; h[2] ^= h[0]
+            h[1] = (_rotl64(h[1], 36) + h[2]) & M; h[3] ^= h[1]
+
+        pos = 0
+        if length > 15:
+            h = [a, b, c, d]
+            for pos in range(0, (length // 32) * 32, 32):
+                w = struct.unpack_from("<4Q", data, pos)
+                h[2] = (h[2] + w[0]) & M
+                h[3] = (h[3] + w[1]) & M
+                short_mix(h)
+                h[0] = (h[0] + w[2]) & M
+                h[1] = (h[1] + w[3]) & M
+            pos = (length // 32) * 32
+            if remainder >= 16:
+                w = struct.unpack_from("<2Q", data, pos)
+                h[2] = (h[2] + w[0]) & M
+                h[3] = (h[3] + w[1]) & M
+                short_mix(h)
+                pos += 16
+                remainder -= 16
+            a, b, c, d = h
+        d = (d + ((length << 56) & M)) & M
+        rb = data[pos:pos + remainder] + b"\x00" * (16 - remainder)
+        if remainder == 0:
+            c = (c + SC) & M
+            d = (d + SC) & M
+        elif remainder <= 3:
+            c = (c + int.from_bytes(rb[:remainder], "little")) & M
+        elif remainder <= 7:
+            c = (c + int.from_bytes(rb[:max(4, remainder)][:remainder],
+                                    "little")) & M
+        elif remainder == 8:
+            c = (c + struct.unpack("<Q", rb[:8])[0]) & M
+        elif remainder <= 11:
+            d = (d + int.from_bytes(rb[8:remainder], "little")) & M
+            c = (c + struct.unpack("<Q", rb[:8])[0]) & M
+        elif remainder == 12:
+            d = (d + struct.unpack("<I", rb[8:12])[0]) & M
+            c = (c + struct.unpack("<Q", rb[:8])[0]) & M
+        else:  # 13..15
+            d = (d + int.from_bytes(rb[8:remainder], "little")) & M
+            c = (c + struct.unpack("<Q", rb[:8])[0]) & M
+        h = [a, b, c, d]
+        # short_end
+        h[3] ^= h[2]; h[2] = _rotl64(h[2], 15); h[3] = (h[3] + h[2]) & M
+        h[0] ^= h[3]; h[3] = _rotl64(h[3], 52); h[0] = (h[0] + h[3]) & M
+        h[1] ^= h[0]; h[0] = _rotl64(h[0], 26); h[1] = (h[1] + h[0]) & M
+        h[2] ^= h[1]; h[1] = _rotl64(h[1], 51); h[2] = (h[2] + h[1]) & M
+        h[3] ^= h[2]; h[2] = _rotl64(h[2], 28); h[3] = (h[3] + h[2]) & M
+        h[0] ^= h[3]; h[3] = _rotl64(h[3], 9); h[0] = (h[0] + h[3]) & M
+        h[1] ^= h[0]; h[0] = _rotl64(h[0], 47); h[1] = (h[1] + h[0]) & M
+        h[2] ^= h[1]; h[1] = _rotl64(h[1], 54); h[2] = (h[2] + h[1]) & M
+        h[3] ^= h[2]; h[2] = _rotl64(h[2], 32); h[3] = (h[3] + h[2]) & M
+        h[0] ^= h[3]; h[3] = _rotl64(h[3], 25); h[0] = (h[0] + h[3]) & M
+        h[1] ^= h[0]; h[0] = _rotl64(h[0], 63); h[1] = (h[1] + h[0]) & M
+        return struct.pack("<QQ", h[0], h[1])
+
+    # long-message path
+    s = [0] * 12
+    s[0] = s[3] = s[6] = s[9] = seed1 & M
+    s[1] = s[4] = s[7] = s[10] = seed2 & M
+    s[2] = s[5] = s[8] = s[11] = SC
+
+    rot = (11, 32, 43, 31, 17, 28, 39, 57, 55, 54, 22, 46)
+
+    def mix(w):
+        for i in range(12):
+            s[i] = (s[i] + w[i]) & M
+            s[(i + 2) % 12] ^= s[(i + 10) % 12]
+            s[(i + 11) % 12] ^= s[i]
+            s[i] = _rotl64(s[i], rot[i])
+            s[(i + 11) % 12] = (s[(i + 11) % 12] + s[(i + 1) % 12]) & M
+
+    nblocks = length // 96
+    for i in range(nblocks):
+        mix(struct.unpack_from("<12Q", data, i * 96))
+    remainder = length - nblocks * 96
+    tail = bytearray(96)
+    tail[:remainder] = data[nblocks * 96:]
+    tail[95] = remainder
+    w = struct.unpack("<12Q", bytes(tail))
+
+    def end_partial(h):
+        h[11] = (h[11] + h[1]) & M; h[2] ^= h[11]; h[1] = _rotl64(h[1], 44)
+        h[0] = (h[0] + h[2]) & M; h[3] ^= h[0]; h[2] = _rotl64(h[2], 15)
+        h[1] = (h[1] + h[3]) & M; h[4] ^= h[1]; h[3] = _rotl64(h[3], 34)
+        h[2] = (h[2] + h[4]) & M; h[5] ^= h[2]; h[4] = _rotl64(h[4], 21)
+        h[3] = (h[3] + h[5]) & M; h[6] ^= h[3]; h[5] = _rotl64(h[5], 38)
+        h[4] = (h[4] + h[6]) & M; h[7] ^= h[4]; h[6] = _rotl64(h[6], 33)
+        h[5] = (h[5] + h[7]) & M; h[8] ^= h[5]; h[7] = _rotl64(h[7], 10)
+        h[6] = (h[6] + h[8]) & M; h[9] ^= h[6]; h[8] = _rotl64(h[8], 13)
+        h[7] = (h[7] + h[9]) & M; h[10] ^= h[7]; h[9] = _rotl64(h[9], 38)
+        h[8] = (h[8] + h[10]) & M; h[11] ^= h[8]; h[10] = _rotl64(h[10], 53)
+        h[9] = (h[9] + h[11]) & M; h[0] ^= h[9]; h[11] = _rotl64(h[11], 42)
+        h[10] = (h[10] + h[0]) & M; h[1] ^= h[10]; h[0] = _rotl64(h[0], 54)
+
+    for i in range(12):
+        s[i] = (s[i] + w[i]) & M
+    end_partial(s)
+    end_partial(s)
+    end_partial(s)
+    return struct.pack("<QQ", s[0], s[1])
+
+
+def spooky_hash128(data: bytes, seed1: int = 0, seed2: int = 0) -> bytes:
+    """16-byte SpookyHash V2 digest (``hashes.cpp``), the AbcCoreOgawa
+    per-object [properties | children] hash trailer;
+    :func:`spooky_hash128_numpy` is its plain version."""
+    return _hash128(_get().spooky_hash128, data, ctypes.c_uint64(seed1),
+                    ctypes.c_uint64(seed2))

@@ -33,7 +33,8 @@ def _area_weights(ssize: int, dsize: int) -> np.ndarray:
     """``(dsize, ssize)`` float32 weights of OpenCV's INTER_AREA along one
     axis."""
     w = np.zeros((dsize, ssize), np.float64)
-    scale = ssize / dsize
+    inv = dsize / ssize
+    scale = 1.0 / inv          # as OpenCV forms it: not always ssize / dsize
     if ssize >= dsize:
         # shrinking: each output cell averages the source interval it covers
         # (computeResizeAreaTab)
@@ -51,19 +52,19 @@ def _area_weights(ssize: int, dsize: int) -> np.ndarray:
             if fsx2 - sx2 > 1e-3:
                 w[dx, sx2] = np.float32(min(min(fsx2 - sx2, 1.0), cell) / cell)
     else:
-        # growing: linear weights with OpenCV's area-mode phase
-        inv = dsize / ssize
+        # growing: linear weights with OpenCV's area-mode phase, the phase
+        # rounded to float32 as OpenCV rounds it
         for dx in range(dsize):
             sx = math.floor(dx * scale)
-            fx = (dx + 1) - (sx + 1) * inv
-            fx = 0.0 if fx <= 0 else fx - math.floor(fx)
+            fx = np.float32((dx + 1) - (sx + 1) * inv)
+            fx = np.float32(0) if fx <= 0 else fx - np.float32(math.floor(fx))
             if sx < 0:
-                sx, fx = 0, 0.0
+                sx, fx = 0, np.float32(0)
             if sx >= ssize - 1:
-                sx, fx = ssize - 1, 0.0
-            w[dx, sx] += np.float32(1.0 - fx)
+                sx, fx = ssize - 1, np.float32(0)
+            w[dx, sx] += np.float32(1) - fx
             if fx:
-                w[dx, sx + 1] += np.float32(fx)
+                w[dx, sx + 1] += fx
     return w.astype(np.float32)
 
 

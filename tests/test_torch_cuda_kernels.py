@@ -2,7 +2,8 @@
 forwards, with and without the LSE output; K3 / K4 flash and K5 head-folded
 backwards; K7 voxel-masked flash attention; K8 the rasterizer; K9 short
 attention forward and backward) against their plain PyTorch versions, on
-the card.
+the card; and the video-only path (``video_only.run``) launching K1, K2, K6
+and K8.
 
 Every test here needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs on a machine that has only PyTorch; there, skip the
@@ -774,3 +775,73 @@ def test_cuda_short_raises_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         sa.short_attention(q, q, q)          # fp16
+
+
+# The video-only product path (video_only.run) at tiny shape widths with
+# heads 64 wide, so that the shape models take the kernel routes: the
+# conditioner's 257 tokens, the DiT's 385 and the ShapeVAE's 128 latents on
+# K2, the volume query (8 192 points over 128 latents) on K6; the
+# release-width motion model on K1 and K2; the weight-free painter on K8.
+# The ShapeVAE's output bias is moved so that the coarse grid's median logit
+# of frame 0's crop is 0: random weights need not cross 0 anywhere.
+@pytest.mark.cuda
+def test_cuda_video_only_launches_the_paths_kernels(cuda, tmp_path):
+    import numpy as np
+
+    from motion324_tpu_torch import video_only
+    from motion324_tpu_torch.config import ModelConfig
+    from motion324_tpu_torch.hy3dgen.paint_pipeline import PaintPipeline
+    from motion324_tpu_torch.hy3dgen.scheduler import flow_match_sigmas
+    from motion324_tpu_torch.hy3dgen.shape_pipeline import ShapeGenPipeline
+    from motion324_tpu_torch.hy3dgen.volume import decode_volume
+    from motion324_tpu_torch.inference.pipeline import MotionPipeline, load_video
+    from motion324_tpu_torch.inference.preprocess import preprocess_video_frames
+    from motion324_tpu_torch.io.fbx import load_fbx
+    from motion324_tpu_torch.io.glb import load_animated_glb
+
+    size, frames = 96, 13
+    yy, xx = np.mgrid[:size, :size]
+    clip = np.full((frames, size, size, 3), 20, np.uint8)
+    for t in range(frames):
+        disc = (yy - 48 - 8 * np.sin(t)) ** 2 + (xx - 48 - 8 * np.cos(t)) ** 2
+        clip[t][disc < 400] = [200, 120 + 5 * t, 60]
+    np.save(tmp_path / "clip.npy", clip)
+    steps = 2
+    pipe = ShapeGenPipeline.init_random(
+        torch.Generator(cuda).manual_seed(0), num_latents=128, latent_dim=8,
+        cond_dim=128, cond_depth=1, cond_heads=2, dit_hidden=128, dit_heads=2,
+        dit_depth=1, dit_single=1, vae_width=128, vae_heads=2, vae_layers=1,
+        image_size=224, device=cuda)
+    crops, _, _ = preprocess_video_frames(load_video(str(tmp_path / "clip.npy")),
+                                          size=512)
+    cond = pipe.encode_cond(pipe.prepare_image(crops[0]))
+    noise = torch.randn(1, 128, 8, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+    lat = pipe.denoise(noise, torch.cat([cond, torch.zeros_like(cond)]),
+                       flow_match_sigmas(steps), 5.0)
+    grid, _ = decode_volume(pipe.vae.query, pipe.vae_decode(lat), 32)
+    with torch.no_grad():
+        pipe.vae.geo_decoder.output_proj.bias -= float(np.median(grid))
+    models = {"shape": pipe,
+              "painter": PaintPipeline(resolution=128, texture_size=256,
+                                       device=cuda),
+              "motion": MotionPipeline(ModelConfig(dtype=torch.bfloat16,
+                                                   decode_frames_chunk=12),
+                                       window=12)}
+    del pipe
+    fa, fo = flash_attention, folded_attention
+    counters = {"K1": (fa, "launches"), "K6": (fa, "single_kv_launches"),
+                "K2": (fo, "launches"), "K8": (rasterize, "launches")}
+    before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+    out = tmp_path / "out"
+    rc = video_only.run(str(tmp_path / "clip.npy"), str(out), models,
+                        steps=steps, octree_resolution=64, max_faces=2000,
+                        recenter=False, device=cuda)
+    torch.cuda.synchronize()
+    assert rc == 0
+    moved = {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()}
+    assert all(n > 0 for n in moved.values()), moved
+    assert moved["K8"] == 7        # 6 views and the atlas
+    _, faces, traj, _ = load_animated_glb(str(out / "output_animation.glb"))
+    assert traj.shape[0] == frames and np.isfinite(traj).all()
+    assert len(load_fbx(str(out / "output_animation.fbx"))["shapes"]) == frames

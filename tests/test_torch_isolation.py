@@ -150,6 +150,34 @@ def test_legacy_and_batch_modules_load_no_jax_cv2_pil_yaml(module):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+VIDEO_ONLY_MODULES = [
+    "motion324_tpu_torch.io", "motion324_tpu_torch.io.png",
+    "motion324_tpu_torch.io.glb", "motion324_tpu_torch.io.fbx",
+    "motion324_tpu_torch.io.abc", "motion324_tpu_torch.io.mesh",
+    "motion324_tpu_torch.convert", "motion324_tpu_torch.preprocess_video",
+    "motion324_tpu_torch.video_only"]
+
+
+@pytest.mark.parametrize("module", VIDEO_ONLY_MODULES)
+def test_export_and_video_only_modules_load_no_jax_pil_cv2_yaml(module):
+    """Each module of the video-only path and its exporters alone: no JAX,
+    and PIL, cv2 and PyYAML, which the card's machine lacks, stay unloaded
+    (the GLB's texture is a PNG of the port's own codec); importing builds
+    nothing."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'cv2', 'yaml'))\n"
+            "from motion324_tpu_torch import native\n"
+            "from motion324_tpu_torch.ops import _build\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad or native._lib is not None or _build._libs "
+            "else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_batch_cli_raises_without_cuda(no_cuda, tmp_path):
     from motion324_tpu_torch import batch_inference
     (tmp_path / "jobs.txt").write_text("m.glb v.npy\n")

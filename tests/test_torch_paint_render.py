@@ -63,10 +63,14 @@ def _image(seed, h, w, smooth=True):
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("src,dst", [((518, 518), (512, 512)), ((64, 80), (48, 60)),
                                      ((100, 64), (64, 64)), ((48, 48), (64, 80)),
-                                     ((37, 50), (37, 50))])
+                                     ((37, 50), (37, 50)),
+                                     ((210, 210), (512, 512)),
+                                     ((246, 186), (512, 512))])
 def test_resize_area_matches_cv2(src, dst):
     """Within float rounding: OpenCV sums the same weights in another order
-    (measured at most 1.8e-7)."""
+    (measured at most 1.8e-7). Growing 210 or 246 or 186 pixels to 512
+    takes OpenCV's scale 1 / (512 / n), not n / 512: at column 256 the two
+    floor to different source pixels."""
     img = np.random.RandomState(sum(src)).rand(*src, 3).astype(np.float32)
     want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_AREA)
     got = im.resize_area(img, dst[::-1]).numpy()
