@@ -102,10 +102,21 @@ Phases, each of which raises on failure (exit code non-zero):
    333 x 97 and 1 100 x 3 bit for bit; a dropped face chunk and a reversed
    tie-break caught.
 
+14. distributed (last): NCCL at world size 1 in this process (a 16-frame
+   DP step, plain and with the bf16 wire, and parallel="sp" / "tp" predict
+   bit for bit against no group); then two ranks on cuda:0 over gloo,
+   spawned with the kernels already built: SP=2 and TP=2 predict in bf16
+   and f32 against one process (DIST_TRAJ_TOL), DP=2 and TP=2 training
+   steps against one process (TRAIN_TOL on the gradients), per-rank
+   launches by call site, three injected faults (SP without the K/V
+   gather, TP without the row reduce, DP with one rank not averaged) and
+   per-rank times, which are no scaling figure.
+
 The kernel phase also holds K7 at the three turbo shapes (on the paint
 path's positions and on random surface positions, with their pair and
 tile densities and K7's pre-pass bit for bit against its plain version),
-and K1, K2 and K6 at the paint UNet's call sites.
+and K1, K2 and K6 at the paint UNet's call sites; the kernel phases also
+hold K1-K5 at the distributed phase's per-rank shapes (sp_* and tp_*).
 
 Launches are attributed to call sites by one spy (``launch_spy``) in the
 pipeline, training and shape phases. The line before the last is a JSON
@@ -312,6 +323,15 @@ def phase_kernels(torch, seed: int) -> list[dict]:
         ("flash_fwd", "unet_mv_6144", 1, 10, 6144, 6144, True),
         ("flash_fwd", "unet_mv_1536", 1, 20, 1536, 1536, True),
         ("folded_fwd", "unet_mv_384", 1, 20, 384, 384, True),
+        # the distributed phase's shapes: SP=2 (a rank's 6 of 12 frames,
+        # its global queries over all the keys), TP=2 (half the heads)
+        ("flash_fwd", "sp_global", 1, 12, 1944, 3888, False),
+        ("folded_fwd", "sp_local", 6, 12, 324, 324, False),
+        ("folded_fwd", "sp_dino", 6, 12, 257, 257, False),
+        ("flash_fwd", "tp_global", 1, 6, 3888, 3888, False),
+        ("flash_fwd", "tp_shape_encoder", 1, 6, 64, 16384, False),
+        ("folded_fwd", "tp_local", 12, 6, 324, 324, False),
+        ("folded_fwd", "tp_dino", 12, 6, 257, 257, False),
     ]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -470,6 +490,13 @@ GRAD_CASES = [
     # launches; no path of the port differentiates such a call yet
     ("flash_single_kv_lse", "volume_query", 1, 16, 8192, 512, False),
     ("flash_single_kv_lse", "kv1000", 2, 12, 333, 1000, False),
+    # the distributed phase's training shapes at TP=2 (half the heads; a
+    # DP=2 rank's micro-batch of one clip is a slice of the rows above)
+    ("flash_fwd_lse", "tp_global", 2, 6, 3888, 3888, False),
+    ("folded_fwd_lse", "tp_local", 24, 6, 324, 324, False),
+    ("flash_bwd_fused", "tp_global", 2, 6, 3888, 3888, False),
+    ("flash_bwd_two_pass", "tp_global_t16", 1, 6, 5184, 5184, False),
+    ("folded_bwd", "tp_local", 24, 6, 324, 324, False),
 ]
 
 
@@ -585,7 +612,8 @@ def phase_grad_kernels(torch, seed: int) -> list[dict]:
                              max_abs_err=max(e for e, *_ in errs.values()),
                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
-            if kname.startswith("flash_bwd") and dname == "bfloat16" and case != "ragged":
+            if (kname.startswith("flash_bwd") and dname == "bfloat16"
+                    and case != "ragged" and not case.startswith("tp_")):
                 profile_step(torch, run, what=f"{kname}/{case}", host_ops=False)
             del q, k, v, o, lse, do
             torch.cuda.empty_cache()
@@ -3219,6 +3247,527 @@ def phase_batch(torch, seed: int, repo: str) -> None:
     torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------------- #
+# distributed: data, tensor and sequence parallelism
+# ---------------------------------------------------------------------- #
+# max |parallel - one process| on the release-width trajectories, as a share
+# of max |traj|, by mode and compute dtype. On an NVIDIA H100 80GB HBM3 at
+# 700 W over seeds 0-4 (PERF.md, Findings): SP read 0 in bf16 and 1.27e-6
+# to 1.80e-6 in f32; TP read 6.85e-3 to 1.374e-2 in bf16 and 1.13e-6 to
+# 1.74e-6 in f32. TP's bf16 trajectories are those of one process at TP's
+# matrix shapes and bf16 partial sums (split_like_tp) bit for bit, which
+# the phase holds too: its gap to one process is cuBLAS rounding at other
+# shapes (1 to 2.5 bf16 ulps of a trajectory), and reducing f32 partials
+# does not close it (6.8e-3 to 1.03e-2, dist_variants). So TP's bf16
+# limit is 2e-2, 1.46x the largest reading; the faults read 0.110 and up.
+DIST_TRAJ_TOL = {("sp", "bfloat16"): E2E_REL_TOL, ("tp", "bfloat16"): 2e-2,
+                 ("sp", "float32"): 1e-5, ("tp", "float32"): 1e-5}
+DIST_LABEL = "2 ranks sharing one H100 over gloo, not a scaling figure"
+
+
+def _patch_transformer(attr, fake):
+    """A function that sets ``transformer.<attr>`` to ``fake`` and returns
+    the undo."""
+    from motion324_tpu_torch.models import transformer
+
+    def apply():
+        real = getattr(transformer, attr)
+        setattr(transformer, attr, fake)
+        return lambda: setattr(transformer, attr, real)
+    return apply
+
+
+def dist_faults(torch) -> dict:
+    """Faults to inject into a parallel run, by name: (parallel mode, a
+    function that patches the port and returns the undo). The K/V gather
+    of the sequence-parallel attention removed (each rank attends to its
+    own frames only); the tensor-parallel row layers' reduce removed (each
+    rank keeps its partial sums)."""
+    return {"SP without the K/V gather": (
+                "sp", _patch_transformer("all_gather_seq",
+                                         lambda x, dim, group: x)),
+            "TP without the row-layer reduce": (
+                "tp", _patch_transformer("reduce_from_tp", lambda x, group: x))}
+
+
+def dist_variants(torch) -> dict:
+    """Readings without a gate, as :func:`dist_faults`: the row layers'
+    partial products formed and reduced in f32 and rounded once, where the
+    port (as a bf16 dot's sharded output in JAX's GSPMD) rounds each to
+    the compute dtype before the reduce."""
+    from motion324_tpu_torch.models import dinov2, transformer
+    from motion324_tpu_torch.parallel.collectives import reduce_from_tp
+    F = torch.nn.functional
+
+    def f32_partials(layer, x, tp):
+        y = reduce_from_tp(F.linear(x.float(), layer.weight.to(x.dtype).float()),
+                           tp)
+        if layer.bias is not None:
+            y = y + layer.bias.to(x.dtype).float()
+        return y.to(x.dtype)
+
+    def apply():
+        real = transformer.row_linear
+        transformer.row_linear = dinov2.row_linear = f32_partials
+
+        def undo():
+            transformer.row_linear = dinov2.row_linear = real
+        return undo
+    return {"TP, row partials formed and reduced in f32": ("tp", apply)}
+
+
+def split_like_tp(torch, model, mp: int = 2) -> None:
+    """Make the whole ``model`` compute its tensor-parallel layers as ``mp``
+    ranks do, in one process: a column layer as the products of each
+    rank's shard (a fused QKV's heads put back inside q, k and v), a row
+    layer as each rank's partial product in the compute dtype, added in
+    rank order, then its bias. TP=mp's matrix shapes and sums without a
+    collective; attention, norms and the rest run as one process's."""
+    from motion324_tpu_torch.parallel.tp import (gather_tensor, shard_tensor,
+                                                 tp_rule)
+    F = torch.nn.functional
+    for name, mod in model.named_modules():
+        rule = tp_rule(name + ".weight")
+        if rule is None or not isinstance(mod, torch.nn.Linear):
+            continue
+        ws = [shard_tensor(mod.weight.detach(), rule, r, mp) for r in range(mp)]
+        if rule == "row":
+            def fwd(x, mod=mod, ws=ws):
+                y = None
+                for w, xr in zip(ws, x.chunk(mp, dim=-1)):
+                    p = F.linear(xr.contiguous(), w.to(x.dtype))
+                    y = p if y is None else y + p
+                return y if mod.bias is None else y + mod.bias.to(y.dtype)
+        else:
+            bs = [None if mod.bias is None else
+                  shard_tensor(mod.bias.detach(), rule, r, mp) for r in range(mp)]
+
+            def fwd(x, ws=ws, bs=bs, rule=rule):
+                outs = [F.linear(x, w.to(x.dtype), None if b is None
+                                 else b.to(x.dtype)).movedim(-1, 0)
+                        for w, b in zip(ws, bs)]
+                return gather_tensor(outs, rule).movedim(0, -1).contiguous()
+        mod.forward = fwd
+
+
+def dist_sites() -> None:
+    """The new per-rank shapes of the two-rank runs, with their splits."""
+    for what, kname, b, h, sq, sk in (
+            ("SP=2 global (a rank's 6 frames over 12)", "flash_fwd", 1, 12, 1944, 3888),
+            ("SP=2 local / DINOv2 (6 frames)", "folded_fwd", 6, 12, 324, 324),
+            ("TP=2 global", "flash_fwd", 1, 6, 3888, 3888),
+            ("TP=2 shape encoder", "flash_fwd", 1, 6, 64, 16384),
+            ("TP=2 local", "folded_fwd", 12, 6, 324, 324),
+            ("TP=2 training global (K1+LSE, K3)", "flash_bwd_fused", 2, 6, 3888, 3888),
+            ("TP=2 training local (K2+LSE, K5)", "folded_bwd", 24, 6, 324, 324),
+            ("DP=2 training global, micro-batch 1", "flash_bwd_fused", 1, 12, 3888, 3888),
+            ("TP=2 training at 16 frames (K4)", "flash_bwd_two_pass", 1, 6, 5184, 5184)):
+        log(f"  shape {what}: {kname} B{b} H{h} Sq{sq} Sk{sk}"
+            f"{split_note(kname, sq, sk, 'bfloat16')}")
+
+
+def _rank_grads(torch, state):
+    """Patch ``state``'s optimizer so that each step records the gradients
+    it is handed (after the mean over dp and the clip), by parameter name,
+    in f32 on the host."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    seen: dict = {}
+    real = state.optimizer.step
+
+    def step(*a, **kw):
+        seen.clear()
+        for g in state.optimizer.param_groups:
+            for p in g["params"]:
+                seen[names[id(p)]] = p.grad.detach().float().cpu()
+        return real(*a, **kw)
+    state.optimizer.step = step
+    return seen
+
+
+def _dist_rank(rank: int, port: int, tmp: str) -> None:
+    """One of the two ranks on cuda:0 over gloo: joins through the launcher
+    variables, runs the job in ``tmp/job.pt`` and writes
+    ``tmp/rank{rank}.pt``. The kernels were built by the parent."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from motion324_tpu_torch.config import ModelConfig
+    from motion324_tpu_torch.inference.pipeline import MotionPipeline
+    from motion324_tpu_torch.models.motion_model import MotionLatentModel
+    from motion324_tpu_torch.ops import flash_attention as fa
+    from motion324_tpu_torch.ops import folded_attention as fo
+    from motion324_tpu_torch.parallel import distributed
+    from motion324_tpu_torch.parallel.mesh import make_mesh
+    from motion324_tpu_torch.parallel.tp import gather_over, shard_state_dict
+    from motion324_tpu_torch.training import train_step as ts
+
+    assert distributed.init_distributed(backend="gloo") == (rank, 2)
+    assert torch.distributed.get_backend() == "gloo"
+    job = torch.load(os.path.join(tmp, "job.pt"), weights_only=False)
+    res: dict = {"launches": {}, "times": {}, "faults": {}, "variants": {}}
+    mesh = make_mesh(dp=1, mp=2)
+
+    def timed(key, fn, n=3):
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res["times"][key] = times
+        return out
+
+    for dname in ("bfloat16", "float32"):
+        cfg = ModelConfig(dtype=getattr(torch, dname), decode_frames_chunk=12)
+        for par in ("sp", "tp"):
+            pipe = MotionPipeline(cfg, state_dict=job["sd"], window=12,
+                                  parallel=par, mesh=mesh)
+            run = lambda: pipe.predict(job["inputs"], job["video"], segment=True)
+            run()
+            zero_launches(fa, fo)
+            by_site, undo = launch_spy(fa, fo)
+            try:
+                trajs = run()
+            finally:
+                undo()
+            res["launches"][(par, dname)] = dict(by_site)
+            res[(par, dname)] = trajs
+            timed((par, dname), run)
+            if dname == "bfloat16":
+                for kind, patches in (("faults", dist_faults(torch)),
+                                      ("variants", dist_variants(torch))):
+                    for name, (mode, patch) in patches.items():
+                        if mode == par:
+                            restore = patch()
+                            try:
+                                res[kind][name] = run()
+                            finally:
+                                restore()
+            del pipe
+            torch.cuda.empty_cache()
+
+    # training: DP=2 (each rank one clip of each micro-batch) and TP=2
+    mcfg = ModelConfig(dtype=torch.bfloat16, decode_frames_chunk=12,
+                       drop_rate=0.0)
+    tcfg = job["tcfg"]
+    micros = [{k: v.cuda() for k, v in mb.items()} for mb in job["micros"]]
+    for par, (dp, mp) in (("dp", (2, 1)), ("tp", (1, 2))):
+        mesh = make_mesh(dp=dp, mp=mp)
+        tp = mesh.mp if mp > 1 else None
+        model = MotionLatentModel(mcfg, seed=None, tp=tp).cuda()
+        model.load_state_dict(shard_state_dict(job["sd"], mesh.mp.rank,
+                                               mp))
+        faults = [False, True] if par == "dp" else [False]
+        for fault in faults:
+            state = ts.create_train_state(model, tcfg, mesh)
+            grads = _rank_grads(torch, state)
+            mine = [{k: v[rank:rank + 1] for k, v in mb.items()}
+                    for mb in micros] if par == "dp" else micros
+            real_mean = ts.mean_over
+            if fault and rank == 1:
+                # rank 1 takes part in the reduce but keeps its own
+                # gradients (the loss, a list of two, is averaged)
+                def local_grads(group, tensors, wire=None):
+                    out = real_mean(group, tensors, wire)
+                    return tensors if len(tensors) > 2 else out
+                ts.mean_over = local_grads
+            zero_launches(fa, fo)
+            by_site, undo = launch_spy(fa, fo)
+            try:
+                metrics = ts.train_step(state, mine, tcfg)
+                torch.cuda.synchronize()
+            finally:
+                undo()
+                ts.mean_over = real_mean
+            whole = gather_over({k: v.cuda() for k, v in grads.items()},
+                                mesh.mp)
+            key = f"{par}_fault" if fault else par
+            res[key] = {"metrics": metrics,
+                        "grads": {k: v.float().cpu() for k, v in whole.items()}}
+            if not fault:
+                res["launches"][(par, "train")] = dict(by_site)
+                model.load_state_dict(shard_state_dict(job["sd"],
+                                                       mesh.mp.rank, mp))
+                state = ts.create_train_state(model, tcfg, mesh)
+                timed((par, "step"), lambda: ts.train_step(state, mine, tcfg))
+            model.load_state_dict(shard_state_dict(job["sd"],
+                                                   mesh.mp.rank, mp))
+        del model, state
+        torch.cuda.empty_cache()
+    # the Trainer at TP=2 with position dropout, each rank's loader yielding
+    # another batch (rank 1 the micro-batches in reverse): the replica
+    # trains on rank 0's, broadcast on the copy stream, so its replicated
+    # parameters stay bit-equal (no checkpoint is written)
+    from motion324_tpu_torch.parallel.tp import tp_rule
+    from motion324_tpu_torch.training import trainer as tr
+    mesh = make_mesh(dp=1, mp=2)
+    model = MotionLatentModel(dataclasses.replace(mcfg, drop_rate=0.1),
+                              seed=None, tp=mesh.mp).cuda()
+    model.load_state_dict(shard_state_dict(job["sd"], mesh.mp.rank, 2))
+    order = job["micros"] if rank == 0 else job["micros"][::-1]
+    batch = {k: torch.cat([mb[k] for mb in order]).numpy() for k in order[0]}
+    cfg = dataclasses.replace(tcfg, parallel_mode="gspmd", mesh_dp=1,
+                              mesh_mp=2, checkpoint_dir=os.path.join(tmp, "tr"))
+    real_save, tr.save_checkpoint = tr.save_checkpoint, lambda d, s: d
+    try:
+        state = tr.Trainer(cfg, model.cfg, [batch], model=model,
+                           device="cuda", mesh=mesh).train(1)
+    finally:
+        tr.save_checkpoint = real_save
+    same = True
+    for k, v in state.model.state_dict().items():
+        if tp_rule(k) is None:
+            parts = [torch.empty_like(v) for _ in range(2)]
+            torch.distributed.all_gather(parts, v.contiguous(),
+                                         group=mesh.mp.group)
+            same &= torch.equal(parts[0], parts[1])
+    res["trainer_replicated_equal"] = bool(same)
+    del model, state
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    distributed.destroy()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_distributed(torch, seed: int, repo: str) -> None:
+    """Data, tensor and sequence parallelism through the port's entry
+    points. (1) NCCL at world size 1, in this process: a release-width
+    bf16 DP step at 16 frames and 8 192 shape samples (K1/K2 with the LSE,
+    K4, K5: kernels whose sums run in a fixed order) gives the parameters
+    of the same step with no group bit for bit, plain and with the bf16
+    wire; ``parallel="sp"``
+    and ``"tp"`` give the plain pipeline's trajectories bit for bit.
+    (2) Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    card), the kernels built here and loaded there: SP=2 and TP=2
+    ``predict`` in bf16 and f32 against the one-process kernel path
+    (DIST_TRAJ_TOL); a DP=2 and a TP=2 training step against the
+    one-process step over the same global batch (TRAIN_TOL on the
+    gradients the optimizer is handed); per-rank launches by call site.
+    (3) Injected faults outside those limits: SP without the K/V gather,
+    TP without the row reduce, DP with one rank's gradients not averaged.
+    (4) Per-rank times, labelled as no scaling figure."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from motion324_tpu_torch.config import ModelConfig, TrainConfig
+    from motion324_tpu_torch.inference.pipeline import (MotionPipeline,
+                                                        load_video,
+                                                        prepare_mesh_inputs)
+    from motion324_tpu_torch.io.mesh import load_mesh
+    from motion324_tpu_torch.models.motion_model import MotionLatentModel
+    from motion324_tpu_torch.parallel import distributed
+    from motion324_tpu_torch.parallel.mesh import make_mesh
+    from motion324_tpu_torch.training.train_step import (create_train_state,
+                                                         train_step)
+
+    dist_sites()
+    mesh_path = os.path.join(repo, "examples", "synthetic", "blob.glb")
+    inputs, _, _ = prepare_mesh_inputs(load_mesh(mesh_path))
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "clip.npy"), synthetic_video(seed))
+        video = load_video(os.path.join(tmp, "clip.npy"), dtype=np.uint8)
+    # the weights: seeded, DINOv2's LayerScale from U(0.1, 1)
+    model = MotionLatentModel(ModelConfig(), seed=seed)
+    set_layer_scale(torch, model, seed)
+    sd = model.state_dict()
+    ref, problems = {}, []
+    for dname in ("bfloat16", "float32"):
+        cfg = ModelConfig(dtype=getattr(torch, dname), decode_frames_chunk=12)
+        pipe = MotionPipeline(cfg, state_dict=sd, window=12)
+        ref[dname] = pipe.predict(inputs, video, segment=True)
+        del pipe
+    # one process at TP=2's matrix shapes and bf16 sums (split_like_tp)
+    pipe = MotionPipeline(ModelConfig(dtype=torch.bfloat16,
+                                      decode_frames_chunk=12),
+                          state_dict=sd, window=12)
+    split_like_tp(torch, pipe.model)
+    ref_split = pipe.predict(inputs, video, segment=True)
+    del pipe
+    # the training step's batch and recipe (the training phase's, with the
+    # spike limit raised so that the init's norm takes the update, and no
+    # position dropout: a DP rank draws its mask for its own clips, so the
+    # masks of two ranks are not one process's)
+    tcfg = TrainConfig(grad_accum_steps=2, remat=False, warmup=0, seed=seed,
+                       allowed_gradnorm_factor=100.0, lr=2e-7)
+    mcfg = ModelConfig(dtype=torch.bfloat16, decode_frames_chunk=12,
+                       drop_rate=0.0)
+    micros = [training_batch(torch, seed + 1 + i) for i in range(2)]
+
+    def one_step(batches, cfg, mesh=None):
+        m = MotionLatentModel(mcfg, seed=None).cuda()
+        m.load_state_dict(sd)
+        state = create_train_state(m, cfg, mesh)
+        grads = _rank_grads(torch, state)
+        metrics = train_step(state, batches, cfg)
+        return state, grads, metrics
+
+    _, ref_grads, ref_metrics = one_step(micros, tcfg)
+    log(f"  one process: step metrics {ref_metrics}")
+    torch.cuda.empty_cache()
+
+    # (1) NCCL at world size 1, through the launcher variables
+    port = _free_port()
+    saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                                            "MASTER_ADDR", "MASTER_PORT")}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    try:
+        assert distributed.init_distributed() == (0, 1)
+        log(f"  world size 1: backend {dist.get_backend()}")
+        # 16 frames and 8 192 shape samples: every backward on K4 and K5,
+        # whose sums run in a fixed order (K3 adds dq in a varying one)
+        long = [training_batch(torch, seed + 7, frames=16, points=8192)]
+        cfg16 = dataclasses.replace(tcfg, grad_accum_steps=1, frames=16)
+        for wire in (False, True):
+            c = dataclasses.replace(cfg16, bf16_grad_allreduce=wire)
+            a, _, ma = one_step(long, c)
+            b, _, mb = one_step(long, c, make_mesh())
+            same = all(torch.equal(x, y) for x, y in zip(
+                a.model.state_dict().values(), b.model.state_dict().values()))
+            log(f"  world size 1, DP step at 16 frames{' (bf16 wire)' if wire else ''}:"
+                f" parameters bit for bit {same}; metrics {ma} / {mb}")
+            if not (same and ma == mb):
+                problems.append(f"world-1 DP step (bf16 wire {wire}) differs "
+                                "from the step with no group")
+            del a, b
+        torch.cuda.empty_cache()
+        cfg = ModelConfig(dtype=torch.bfloat16, decode_frames_chunk=12)
+        for par in ("sp", "tp"):
+            pipe = MotionPipeline(cfg, state_dict=sd, window=12, parallel=par)
+            same = np.array_equal(pipe.predict(inputs, video, segment=True),
+                                  ref["bfloat16"])
+            log(f"  world size 1, parallel={par!r}: trajectories bit for bit "
+                f"{same}")
+            if not same:
+                problems.append(f"world-1 parallel={par} differs")
+            del pipe
+    finally:
+        distributed.destroy()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+
+    # (2) two ranks on cuda:0 over gloo
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"sd": sd, "tcfg": tcfg,
+                    "inputs": inputs, "video": video,
+                    "micros": [{k: v.cpu() for k, v in mb.items()}
+                               for mb in micros]},
+                   os.path.join(tmp, "job.pt"))
+        ctx = mp.get_context("spawn")
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_dist_rank, args=(r, port, tmp))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        log(f"  two ranks ran {time.perf_counter() - t0:.1f} s, exit codes {codes}")
+        if codes != [0, 0]:
+            raise AssertionError(f"a rank failed: exit codes {codes}")
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+               for r in range(2)]
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()[0]
+    for r, res in enumerate(got):
+        for (par, what), by_site in res["launches"].items():
+            want = (CLIP_LAUNCHES if what != "train" else
+                    {k: v * tcfg.grad_accum_steps for k, v in TRAIN_LAUNCHES.items() if v})
+            ok = by_site == want
+            log(f"  rank {r} {par} {what}: launches by call site "
+                f"{dict(sorted(by_site.items()))}{'' if ok else ' (UNEXPECTED)'}")
+            if not ok:
+                problems.append(f"rank {r} {par} {what}: launches {by_site}, "
+                                f"expected {want}")
+        for key, times in res["times"].items():
+            log(f"  rank {r} {'/'.join(key)}: {[round(t, 4) for t in times]} s "
+                f"({DIST_LABEL}; {smi})")
+        log(f"  rank {r} peak device memory {res['peak_gb']:.2f} GB")
+    scale = {d: float(np.abs(ref[d]).max()) for d in ref}
+    for (par, dname), rel in DIST_TRAJ_TOL.items():
+        tol = rel * scale[dname]
+        for r, res in enumerate(got):
+            err = float(np.abs(res[(par, dname)] - ref[dname]).max())
+            log(f"  rank {r} {par.upper()}=2 {dname}: max|parallel - one "
+                f"process| {err:.3e} = {err / scale[dname]:.3e} x max|traj| "
+                f"(tol {rel:.0e})")
+            if not err <= tol:
+                problems.append(f"{par} {dname} rank {r}: {err:.3e} > {tol:.3e}")
+    e = float(np.abs(ref_split - ref["bfloat16"]).max())
+    log(f"  one process at TP=2's matrix shapes and bf16 sums against one "
+        f"process: {e:.3e} = {e / scale['bfloat16']:.3e} x max|traj|")
+    for r, res in enumerate(got):
+        same = np.array_equal(res[("tp", "bfloat16")], ref_split)
+        log(f"  rank {r} TP=2 bfloat16 against one process at TP=2's matrix "
+            f"shapes and bf16 sums: bit for bit {same}")
+        if not same:
+            problems.append(f"TP=2 bf16 rank {r} differs from one process at "
+                            "its matrix shapes")
+    for r, res in enumerate(got):
+        same = res["trainer_replicated_equal"]
+        log(f"  rank {r} Trainer TP=2 step, another batch on each rank's "
+            f"loader: replicated parameters bit-equal across ranks {same}")
+        if not same:
+            problems.append(f"Trainer TP=2 rank {r}: replicated parameters "
+                            "differ across ranks")
+    for name in got[0]["variants"]:
+        for r, res in enumerate(got):
+            e = float(np.abs(res["variants"][name] - ref["bfloat16"]).max())
+            log(f"  variant, {name}, rank {r}: {e:.3e} = "
+                f"{e / scale['bfloat16']:.3e} x max|traj| (no gate)")
+    faults = dist_faults(torch)
+    for name in got[0]["faults"]:
+        tol = DIST_TRAJ_TOL[(faults[name][0], "bfloat16")] * scale["bfloat16"]
+        for r, res in enumerate(got):
+            e = float(np.abs(res["faults"][name] - ref["bfloat16"]).max())
+            log(f"  injected fault, {name}, rank {r}: {e:.3e} = "
+                f"{e / scale['bfloat16']:.3e} x max|traj|: "
+                f"{'caught' if e > tol else 'MISSED'}")
+            if not e > tol:
+                problems.append(f"fault missed: {name} rank {r}")
+    for key in ("dp", "tp", "dp_fault"):
+        for r, res in enumerate(got):
+            total, worst, worst_name = grad_errors(res[key]["grads"], ref_grads)
+            m = res[key]["metrics"]
+            readings = {"loss": abs(m["loss"] - ref_metrics["loss"]) / ref_metrics["loss"],
+                        "grad_norm": abs(m["grad_norm"] - ref_metrics["grad_norm"])
+                        / ref_metrics["grad_norm"],
+                        "grads": total, "param_grad": worst}
+            bad = [k for k, v in readings.items() if not v <= TRAIN_TOL[k]]
+            log(f"  rank {r} {key} step against one process: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+                + f" (worst {worst_name}); "
+                + (f"outside {bad}" if bad else "within TRAIN_TOL"))
+            if key == "dp_fault" and r == 1 and not bad:
+                problems.append("fault missed: DP with rank 1's gradients "
+                                "not averaged")
+            if key != "dp_fault" and bad:
+                problems.append(f"{key} step rank {r} outside {bad}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3276,6 +3825,9 @@ def main(argv=None) -> int:
     header("video-only path: video_only.run, preprocess -> shape -> paint -> "
            "motion -> GLB + FBX, release width, bf16")
     phase_video_only(torch, args.seed, keep)
+    header("distributed: DP and TP training, TP and SP inference; NCCL at "
+           "world size 1, two ranks on the card over gloo")
+    phase_distributed(torch, args.seed, repo)
     header("done")
 
     kernels = []

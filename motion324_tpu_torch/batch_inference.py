@@ -18,6 +18,10 @@ Without ``--checkpoint`` the weights are random, drawn from ``--seed``.
 is the release model of ``configs/dyscene.yaml`` in bf16. ``--u2net``
 segments with U2Net on the device instead of the border fallback. A video
 is an mp4 (needs cv2) or a ``.npy`` array of frames.
+
+``--parallel tp|sp`` under ``torchrun --nproc-per-node N`` splits the model
+(tp: heads) or each window's frames (sp) over the N ranks, one card each;
+``mp`` is the world size, and rank 0 writes the GLBs.
 """
 
 from __future__ import annotations
@@ -59,9 +63,8 @@ def read_jobs(path: str) -> tuple[list[tuple[str, str]], list[str]]:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
-        epilog="Not in the port yet: --parallel (tensor, sequence or "
-               "pipeline parallel over several cards) waits for the "
-               "distributed slice; --yuv-upload (I420 frames) was built for "
+        epilog="Not in the port: --parallel pp (pipeline parallel, ROADMAP "
+               "Queue 1 item 11); --yuv-upload (I420 frames) was built for "
                "the TPU's host link and stays with the JAX package's "
                "scripts/batch_inference.py.")
     parser.add_argument("--list", required=True, dest="list_path",
@@ -77,6 +80,9 @@ def main(argv=None) -> int:
                              "a time (B=1 runs them one by one)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--parallel", choices=("tp", "sp"), default=None,
+                        help="under torchrun: tensor (tp) or sequence (sp) "
+                             "parallel over the ranks, mp = world size")
     parser.add_argument("overrides", nargs="*", help="key.path=value")
     args = parser.parse_args(argv)
 
@@ -84,7 +90,9 @@ def main(argv=None) -> int:
 
     from motion324_tpu_torch.config import (ModelConfig, load_model_config,
                                             read_config)
-    from motion324_tpu_torch.inference.pipeline import MotionPipeline
+    from motion324_tpu_torch.parallel.distributed import (destroy,
+                                                          init_distributed,
+                                                          local_device)
     from motion324_tpu_torch.utils.logging import log
 
     n_samples = 16384
@@ -100,9 +108,23 @@ def main(argv=None) -> int:
         cfg, decode_frames_chunk=decode_frames_chunk(window, args.batch))
     if args.checkpoint is None:
         log("no checkpoint given: random weights")
+    device = args.device
+    if args.parallel:
+        device = local_device(args.device)
+        init_distributed(device=device)
+    try:
+        return _run_jobs(args, cfg, window, device, n_samples)
+    finally:
+        destroy()
+
+
+def _run_jobs(args, cfg, window, device, n_samples) -> int:
+    from motion324_tpu_torch.inference.pipeline import MotionPipeline
+    from motion324_tpu_torch.utils.logging import log
+
     pipeline = MotionPipeline(cfg, state_dict=args.checkpoint, window=window,
-                              device=args.device, seed=args.seed,
-                              seg_params=args.u2net)
+                              device=device, seed=args.seed,
+                              seg_params=args.u2net, parallel=args.parallel)
 
     jobs, malformed = read_jobs(args.list_path)
     log(f"{len(jobs) + len(malformed)} jobs from {args.list_path}")

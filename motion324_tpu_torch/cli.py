@@ -11,6 +11,15 @@ border-statistics fallback. ``--config`` reads the model
 and its dtype from a YAML file (needs PyYAML); the default is the release
 model of ``configs/dyscene.yaml`` in bf16. mp4 input needs cv2; a ``.npy``
 array of frames does not.
+
+On several cards, one process each, under torchrun:
+
+    torchrun --nproc-per-node N -m motion324_tpu_torch.cli --parallel sp ...
+
+``--parallel tp`` splits the model's heads over the N ranks, ``sp`` each
+window's frames (the window must divide by N); ``mp`` is the world size,
+as the JAX script's ``make_mesh(dp=1, mp=len(devices))``, and at world
+size 1 the model runs whole. Rank 0 writes the GLB.
 """
 
 from __future__ import annotations
@@ -38,12 +47,18 @@ def main(argv=None) -> int:
                              "device instead of the border fallback")
     parser.add_argument("--exact", action="store_true",
                         help="f32 video upload (no uint8 quantization)")
+    parser.add_argument("--parallel", choices=("tp", "sp"), default=None,
+                        help="under torchrun: tensor (tp) or sequence (sp) "
+                             "parallel over the ranks, mp = world size")
     args = parser.parse_args(argv)
 
     import torch
 
     from motion324_tpu_torch.config import ModelConfig, load_model_config
     from motion324_tpu_torch.inference.pipeline import MotionPipeline
+    from motion324_tpu_torch.parallel.distributed import (destroy,
+                                                          init_distributed,
+                                                          local_device)
 
     if args.config:
         cfg = load_model_config(args.config)
@@ -53,16 +68,25 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(cfg, decode_frames_chunk=cfg.frames)
     if args.checkpoint is None:
         print("no checkpoint given: random weights", file=sys.stderr)
-    t0 = time.perf_counter()
-    pipe = MotionPipeline(cfg, state_dict=args.checkpoint, window=cfg.frames,
-                          device=args.device, seed=args.seed,
-                          seg_params=args.u2net)
-    out = pipe.run(args.mesh, args.video, args.output,
-                   smooth=not args.no_smooth, max_frames=args.max_frames,
-                   use_segmentation=not args.no_segmentation,
-                   uint8_upload=not args.exact)
-    print(f"animated GLB written to {out} "
-          f"({time.perf_counter() - t0:.2f} s)")
+    device = args.device
+    if args.parallel:
+        device = local_device(args.device)
+        init_distributed(device=device)
+    try:
+        t0 = time.perf_counter()
+        pipe = MotionPipeline(cfg, state_dict=args.checkpoint,
+                              window=cfg.frames, device=device,
+                              seed=args.seed, seg_params=args.u2net,
+                              parallel=args.parallel)
+        out = pipe.run(args.mesh, args.video, args.output,
+                       smooth=not args.no_smooth, max_frames=args.max_frames,
+                       use_segmentation=not args.no_segmentation,
+                       uint8_upload=not args.exact)
+        if pipe.writer:
+            print(f"animated GLB written to {out} "
+                  f"({time.perf_counter() - t0:.2f} s)")
+    finally:
+        destroy()
     return 0
 
 

@@ -1,4 +1,5 @@
-"""End-to-end inference on one device: mesh + video -> animated GLB.
+"""End-to-end inference: mesh + video -> animated GLB, on one device or
+split over the ranks of a process group (tensor or sequence parallel).
 
 The ``4D_from_existing`` product path:
 
@@ -18,6 +19,21 @@ window in one forward, and :meth:`MotionPipeline.run_batch` groups a list
 of jobs by shape for it (the ``long_videos.txt`` batch runner,
 :mod:`motion324_tpu_torch.batch_inference`). Trajectories are read back as
 exact f32.
+
+``MotionPipeline(..., parallel="tp" | "sp", mesh=...)`` runs one process
+per card (counterpart of the JAX pipeline's ``mesh=`` / ``parallel=``);
+every rank loads the same mesh and video and returns the whole
+trajectories, and rank 0 alone writes the GLB:
+
+- ``"tp"``: tensor parallel over ``mesh.mp``; each rank holds its shard of
+  every attention's heads and MLP units (the shard of the whole state).
+- ``"sp"``: sequence parallel over the frame axis: each rank encodes,
+  segments and decodes its block of each window's frames, the global
+  attention gathers K/V over ``mesh.mp``, and the trajectories are
+  gathered in rank order. The window must divide by the group's size; a
+  clip shorter than the window whose frame count does not divide runs
+  whole on every rank.
+- ``"pp"`` (pipeline parallel) is not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +56,9 @@ from motion324_tpu_torch.io.mesh import (TriMesh, load_mesh, nearest_colors,
                                          normalize_unit_cube,
                                          sample_with_albedo, vertex_normals)
 from motion324_tpu_torch.models.motion_model import MotionLatentModel
+from motion324_tpu_torch.parallel.collectives import all_gather_seq
+from motion324_tpu_torch.parallel.distributed import is_initialized
+from motion324_tpu_torch.parallel.mesh import Mesh, make_mesh
 from motion324_tpu_torch.utils.convert import load_reference_state_dict
 from motion324_tpu_torch.utils.logging import log
 
@@ -148,8 +167,12 @@ def to_blender_coords(trajs: np.ndarray) -> np.ndarray:
     return out
 
 
+PARALLEL_MODES = (None, "tp", "sp")
+
+
 class MotionPipeline:
-    """The model on one device, for repeated clip inference.
+    """The model on one device (or split over ranks), for repeated clip
+    inference.
 
     ``state_dict``: a reference ``.pt`` path or state dict (reference names,
     see :mod:`motion324_tpu_torch.utils.convert`); without one the weights
@@ -161,16 +184,40 @@ class MotionPipeline:
     for the in-graph segmentation, held on the device in bf16 (as in the
     JAX package) as ``seg_net``. A call that is given its own weights uses
     those, for that call.
+
+    ``parallel``: None, ``"tp"`` or ``"sp"`` over ``mesh.mp`` (default:
+    ``make_mesh(dp=1, mp=world size)`` of the process group; at world size
+    1 the model runs whole). ``"pp"`` raises ``NotImplementedError``.
     """
 
     def __init__(self, cfg: ModelConfig, state_dict=None, window: int = 12,
                  decode_chunk: int = DECODE_CHUNK, device=None, seed: int = 0,
-                 seg_params=None):
+                 seg_params=None, parallel: str | None = None,
+                 mesh: Mesh | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.window = window
         self.decode_chunk = decode_chunk
-        model = MotionLatentModel(cfg, seed=seed if state_dict is None else None)
+        if parallel == "pp":
+            raise NotImplementedError(
+                "parallel='pp' (pipeline parallel) is not ported yet (ROADMAP "
+                "Queue 1 item 11); use 'tp' or 'sp'")
+        if parallel not in PARALLEL_MODES:
+            raise ValueError(f"parallel must be None, 'tp', 'sp' or 'pp', not "
+                             f"{parallel!r}")
+        if parallel is not None and mesh is None:
+            mesh = make_mesh(dp=1, mp=(torch.distributed.get_world_size()
+                                       if is_initialized() else 1))
+        self.parallel, self.mesh = parallel, mesh
+        self._sp = mesh.mp if parallel == "sp" else None
+        if self._sp is not None and window % self._sp.size:
+            raise ValueError(
+                f"sequence parallelism needs window ({window}) divisible by "
+                f"the mp axis ({self._sp.size})")
+        # rank 0 writes the outputs
+        self.writer = not is_initialized() or torch.distributed.get_rank() == 0
+        model = MotionLatentModel(cfg, seed=seed if state_dict is None else None,
+                                  tp=mesh.mp if parallel == "tp" else None)
         if state_dict is not None:
             load_reference_state_dict(model, state_dict)
         self.model = model.to(device=self.device, dtype=cfg.dtype).eval()
@@ -241,13 +288,23 @@ class MotionPipeline:
         n = pts[0].shape[1]
 
         def forward(window):
+            # sequence parallel: this rank's block of the window's frames
+            # (a window whose length does not divide runs whole)
+            sp = self._sp
+            if sp is not None and window.shape[0] % sp.size:
+                sp = None
+            if sp is not None:
+                f = window.shape[0] // sp.size
+                window = window[sp.rank * f:(sp.rank + 1) * f]
             x = self._tensor(np.swapaxes(window, 0, 1))
             x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-            tokens = m.encode_video(self._mask(x, segment, net), mesh_feat)
+            tokens = m.encode_video(self._mask(x, segment, net), mesh_feat,
+                                    sp=sp)
             parts = [m.decode_points(tokens, *(p[:, i:i + self.decode_chunk]
                                                for p in pts))
                      for i in range(0, n, self.decode_chunk)]
-            return torch.cat(parts, dim=2).cpu().numpy()
+            out = all_gather_seq(torch.cat(parts, dim=2), 1, sp)
+            return out.cpu().numpy()
 
         return sliding_window_predict(forward, np.swapaxes(videos, 0, 1),
                                       self.window, inputs["ref_pcd"])
@@ -291,7 +348,8 @@ class MotionPipeline:
             trajs = smooth_trajectories(trajs, method="combined",
                                         motion_threshold=0.002, sigma=1.0)
         out_path = os.path.join(output_dir, "output_animation.glb")
-        self._export(out_path, trajs[0], norm_mesh, fps)
+        if self.writer:
+            self._export(out_path, trajs[0], norm_mesh, fps)
         return out_path
 
     def run_batch(self, jobs, output_dir: str, num_shape_samples: int = 16384,
@@ -348,5 +406,6 @@ class MotionPipeline:
                 clip_dir = os.path.join(output_dir, stem)
                 os.makedirs(clip_dir, exist_ok=True)
                 out_paths[i] = os.path.join(clip_dir, "output_animation.glb")
-                self._export(out_paths[i], trajs[bi], norm_mesh, fps)
+                if self.writer:
+                    self._export(out_paths[i], trajs[bi], norm_mesh, fps)
         return out_paths

@@ -13,6 +13,12 @@ GELU), the motion model's ViT-B/14; ``"swiglu"`` is the DINOv2-giant one of
 the shape-generation conditioner (torch-hub ``SwiGLUFFNFused``: ``mlp.w12``
 of width 2 x hidden, ``silu(h1) * h2``, ``mlp.w3``; hidden
 ``((int(4 d * 2/3) + 7) // 8) * 8``, 4 096 at d = 1 536).
+
+With a ``tp`` group the attention holds this rank's ``num_heads / mp``
+heads: ``qkv`` (and its bias) split by head inside q, k and v, ``proj``
+row-parallel with its bias added after the reduce. The MLP stays whole, as
+the JAX package's tensor-parallel rules leave it
+(:mod:`motion324_tpu_torch.parallel.tp`).
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from motion324_tpu_torch.models.transformer import GELU, LayerNorm, Linear
+from motion324_tpu_torch.models.transformer import (GELU, LayerNorm, Linear,
+                                                    row_linear, tp_width)
 from motion324_tpu_torch.ops.attention import multi_head_attention
+from motion324_tpu_torch.parallel.collectives import copy_to_tp
 
 __all__ = ["DinoViT", "IMAGENET_MEAN", "IMAGENET_STD"]
 
@@ -32,20 +40,24 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 
 class _Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, attn_backend: str | None):
+    def __init__(self, dim: int, num_heads: int, attn_backend: str | None,
+                 tp=None):
         super().__init__()
-        self.num_heads = num_heads
+        self.tp = tp
+        self.local_dim = tp_width(dim, num_heads, tp)   # this rank's heads
+        self.num_heads = num_heads * self.local_dim // dim
         self.attn_backend = attn_backend
-        self.qkv = Linear(dim, 3 * dim)
-        self.proj = Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * self.local_dim)
+        self.proj = Linear(self.local_dim, dim)
 
     def forward(self, x):
-        b, l, c = x.shape
+        b, l, _ = x.shape
+        c = self.local_dim
         hd = c // self.num_heads
         q, k, v = (t.view(b, l, self.num_heads, hd)
-                   for t in self.qkv(x).split(c, dim=-1))
+                   for t in self.qkv(copy_to_tp(x, self.tp)).split(c, dim=-1))
         out = multi_head_attention(q, k, v, backend=self.attn_backend)
-        return self.proj(out.reshape(b, l, c))
+        return row_linear(self.proj, out.reshape(b, l, c), self.tp)
 
 
 class _LayerScale(nn.Module):
@@ -87,10 +99,10 @@ def swiglu_hidden(dim: int, mlp_ratio: int = 4) -> int:
 
 class _Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
-                 attn_backend: str | None, mlp_type: str = "mlp"):
+                 attn_backend: str | None, mlp_type: str = "mlp", tp=None):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = _Attention(dim, num_heads, attn_backend)
+        self.attn = _Attention(dim, num_heads, attn_backend, tp)
         self.ls1 = _LayerScale(dim)
         self.norm2 = LayerNorm(dim, eps=1e-6)
         if mlp_type == "swiglu":
@@ -122,7 +134,7 @@ class DinoViT(nn.Module):
                  num_heads: int = 12, patch_size: int = 14,
                  native_grid: int = 37, mlp_ratio: int = 4,
                  attn_backend: str | None = None, mlp_type: str = "mlp",
-                 keep_cls: bool = False):
+                 keep_cls: bool = False, tp=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.patch_size = patch_size
@@ -133,7 +145,7 @@ class DinoViT(nn.Module):
         self.pos_embed = nn.Parameter(
             torch.zeros(1, 1 + native_grid ** 2, embed_dim))
         self.blocks = nn.ModuleList(
-            _Block(embed_dim, num_heads, mlp_ratio, attn_backend, mlp_type)
+            _Block(embed_dim, num_heads, mlp_ratio, attn_backend, mlp_type, tp)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim, eps=1e-6)
 

@@ -1,6 +1,6 @@
 """MotionLatentModel: shape point cloud + video -> per-point trajectories.
 
-Counterpart of ``motion324_tpu/models/motion_model.py`` on one device.
+Counterpart of ``motion324_tpu/models/motion_model.py``.
 Token layout per frame: ``[4 special | 64 mesh | 256 image]`` = 324 tokens;
 8 (global over T*324, local over 324) block pairs. Parameter names follow the
 reference checkpoint (``points_transformer_blocks.{i}``,
@@ -13,6 +13,16 @@ in (f32 parameters under bf16 compute in training, as in the JAX recipe).
 Training adds the position-embedding dropout (``train=True``, mask drawn
 from an explicit ``torch.Generator``) and, with ``remat`` set, recomputes
 each transformer block in the backward (``torch.utils.checkpoint``).
+
+Tensor parallelism: built with a ``tp`` group, every attention and
+transformer MLP (DINOv2's attention too) holds this rank's shard of the
+heads (:mod:`motion324_tpu_torch.parallel.tp`); a seeded TP model is the
+shard of the seeded whole model. Sequence parallelism (inference):
+``encode_video(..., sp=group)`` takes this rank's block of frames; the
+position table is sized to the global frame count and sliced at the
+block's offset, the frame-0 special token goes only where frame 0 lives,
+and only the global block of each pair communicates (K/V gathered over the
+group); DINOv2, the local blocks and ``decode_points`` stay frame-local.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from motion324_tpu_torch.ops.embeddings import (apply_point_basis,
                                                 point_embed_basis,
                                                 resize_pos_embed,
                                                 video_pos_embed)
+from motion324_tpu_torch.parallel.tp import shard_state_dict
 
 __all__ = ["MotionLatentModel", "init_weights"]
 
@@ -60,14 +71,20 @@ class MotionLatentModel(nn.Module):
     Inputs (as in the JAX package): shape samples ``(B, S, 3)`` x3, query
     points ``(B, N, 3)`` x3 and ``rgb_video`` ``(B, T, H, W, 3)`` in [0, 1].
     Output: ``(B, T, N, 3)`` float32 positions.
+
+    ``tp``: the tensor-parallel group (a
+    :class:`~motion324_tpu_torch.parallel.mesh.Group`) this model's shards
+    are split over; its state dict then holds this rank's shard
+    (:func:`~motion324_tpu_torch.parallel.tp.shard_state_dict`).
     """
 
-    def __init__(self, cfg: ModelConfig, seed: int | None = 0):
+    def __init__(self, cfg: ModelConfig, seed: int | None = 0, tp=None):
         super().__init__()
         self.cfg = c = cfg
+        self.tp = tp
         self.remat = False   # recompute each block in the backward (training)
         kw = dict(head_dim=c.head_dim, use_qk_norm=c.use_qk_norm,
-                  attn_backend=c.attn_backend)
+                  attn_backend=c.attn_backend, tp=tp)
         d = c.feat_dim
         self.point_embed = _PointEmbed(c.point_hidden, d)
         self.point_normal_rgb_proj = Linear(d + 6, d)
@@ -83,7 +100,8 @@ class MotionLatentModel(nn.Module):
         self.image_encoder = _ImageEncoder(DinoViT(
             embed_dim=d, depth=c.dino_depth, num_heads=c.dino_heads,
             patch_size=c.patch_size,
-            attn_backend="plain" if c.attn_backend == "plain" else None))
+            attn_backend="plain" if c.attn_backend == "plain" else None,
+            tp=tp))
         n_pairs = c.n_alternating_layers // 2
         self.global_transformer_blocks = nn.ModuleList(
             TransformerBlock(d, **kw) for _ in range(n_pairs))
@@ -97,7 +115,10 @@ class MotionLatentModel(nn.Module):
             "video_pos_embed",
             torch.from_numpy(video_pos_embed(c.frames, c.grid, c.grid, d)),
             persistent=False)
-        if seed is not None:
+        if seed is not None and tp is not None:
+            whole = MotionLatentModel(cfg, seed=seed).state_dict()
+            self.load_state_dict(shard_state_dict(whole, tp.rank, tp.size))
+        elif seed is not None:
             init_weights(self, torch.Generator().manual_seed(seed))
 
     @property
@@ -105,10 +126,10 @@ class MotionLatentModel(nn.Module):
         """The compute dtype."""
         return self.cfg.dtype
 
-    def _block(self, blk, *args):
+    def _block(self, blk, *args, **kw):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(blk, *args, use_reentrant=False)
-        return blk(*args)
+            return checkpoint(blk, *args, use_reentrant=False, **kw)
+        return blk(*args, **kw)
 
     # ------------------------------------------------------------------ #
     def _point_features(self, pcd, normals, rgbs):
@@ -129,11 +150,13 @@ class MotionLatentModel(nn.Module):
         return x
 
     def encode_video(self, rgb_video, mesh_feat, train: bool = False,
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None, sp=None):
         """Video + mesh tokens -> ``(B, T, tokens, C)`` per-frame tokens.
 
         ``train`` applies the position-embedding dropout, its mask drawn
-        from ``generator`` (on the activations' device)."""
+        from ``generator`` (on the activations' device). ``sp``: the
+        sequence-parallel group; ``rgb_video`` is then rank ``r``'s block
+        of ``T`` frames, frames ``[r T, (r + 1) T)`` of the clip."""
         c = self.cfg
         b, t, h, w, _ = rgb_video.shape
         g = c.grid
@@ -146,11 +169,15 @@ class MotionLatentModel(nn.Module):
         with torch.no_grad():
             image_tokens = self.image_encoder.model(frames.to(self.dtype))
 
-        if t == c.frames:
+        # the global frame count and this block's first frame
+        t_global = t if sp is None else t * sp.size
+        offset = 0 if sp is None else sp.rank * t
+        if t_global == c.frames:
             pos = self.video_pos_embed
         else:
             pos = resize_pos_embed(self.video_pos_embed, (c.frames, g, g),
-                                   (t, g, g))
+                                   (t_global, g, g))
+        pos = pos[:, offset * g * g:(offset + t) * g * g]
         x = image_tokens.reshape(b, t * g * g, c.feat_dim) + pos.to(image_tokens.dtype)
         if train and c.drop_rate > 0:
             keep = 1.0 - c.drop_rate
@@ -160,7 +187,8 @@ class MotionLatentModel(nn.Module):
         video_tokens = x.reshape(b, t, g * g, c.feat_dim)
 
         special = self.special_token_rest.to(self.dtype).expand(t, -1, -1).clone()
-        special[0] = self.special_token_0[0].to(self.dtype)
+        if offset == 0:
+            special[0] = self.special_token_0[0].to(self.dtype)
         special = special[None].expand(b, -1, -1, -1)
         mesh_rep = mesh_feat[:, None].expand(-1, t, -1, -1)
         tokens = torch.cat([special, mesh_rep, video_tokens], dim=2)
@@ -170,7 +198,7 @@ class MotionLatentModel(nn.Module):
         x = tokens.reshape(b, t * l, c.feat_dim)
         for glob, loc in zip(self.global_transformer_blocks,
                              self.local_transformer_blocks):
-            x = self._block(glob, x)
+            x = self._block(glob, x, sp=sp)
             x = self._block(loc, x.reshape(b * t, l, c.feat_dim)).reshape(
                 b, t * l, c.feat_dim)
         return x.reshape(b, t, l, c.feat_dim)[:, :, 4:4 + c.tokens]

@@ -6,6 +6,13 @@ A checkpoint is the directory ``ckpt_dir/ckpt_{update_step:016d}`` holding
 the model's state dict (reference parameter names) and ``opt_state`` the
 optimizer's. It is named by the applied updates, as the reference names its
 ``ckpt_{param_update_step:016d}.pt``.
+
+On a mesh the file holds the whole model, whatever ``(dp, mp)`` wrote it:
+the tensor-parallel shards of the parameters and of AdamW's moments are
+gathered over ``mp`` and global rank 0 writes, behind a barrier. Every
+rank resumes from the whole state and cuts its own shard again, so a
+checkpoint written at any ``(dp, mp)`` resumes at any other, and on one
+device.
 """
 
 from __future__ import annotations
@@ -14,8 +21,12 @@ import os
 import re
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from motion324_tpu_torch.parallel.distributed import is_initialized
+from motion324_tpu_torch.parallel.tp import (gather_over, shard_state_dict,
+                                             shard_tensor, tp_rule)
 from motion324_tpu_torch.training.train_step import TrainState
 
 __all__ = ["save_checkpoint", "find_checkpoints", "latest_checkpoint",
@@ -25,18 +36,50 @@ _CKPT_RE = re.compile(r"^ckpt_(\d{16})$")
 _FILE = "state.pt"
 
 
+def _opt_names(state: TrainState) -> list[str]:
+    """The parameter name of each index of the optimizer's state dict."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for g in state.optimizer.param_groups
+            for p in g["params"]]
+
+
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def _moments(state: TrainState, sd: dict, cut) -> dict:
+    """``sd`` (an optimizer state dict) with ``cut(tensor, name)`` applied
+    to the AdamW moments of every parameter; the live state is not
+    touched."""
+    names = _opt_names(state)
+    out = dict(sd)
+    out["state"] = {i: {**s, **{m: cut(s[m], names[int(i)]) for m in _MOMENTS
+                               if m in s}}
+                    for i, s in sd["state"].items()}
+    return out
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
     """Write ``state`` to ``ckpt_dir/ckpt_{update_step:016d}`` and return
     that directory. The file is written under another name and renamed, so
-    a crash leaves no partial checkpoint behind."""
+    a crash leaves no partial checkpoint behind. On a mesh every rank calls
+    this; the model replica of ``dp`` index 0 gathers its shards and global
+    rank 0 writes them."""
     path = os.path.abspath(os.path.join(ckpt_dir,
                                         f"ckpt_{state.update_step:016d}"))
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, _FILE + ".tmp")
-    torch.save({"params": state.model.state_dict(),
-                "opt_state": state.optimizer.state_dict(),
-                "step": state.step, "update_step": state.update_step}, tmp)
-    os.replace(tmp, os.path.join(path, _FILE))
+    if state.mesh.dp.rank == 0:
+        params = gather_over(state.model.state_dict(), state.mesh.mp)
+        opt = _moments(state, state.optimizer.state_dict(),
+                       lambda v, name: gather_over({name: v},
+                                                   state.mesh.mp)[name])
+        if not is_initialized() or dist.get_rank() == 0:
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, _FILE + ".tmp")
+            torch.save({"params": params, "opt_state": opt,
+                        "step": state.step, "update_step": state.update_step},
+                       tmp)
+            os.replace(tmp, os.path.join(path, _FILE))
+    if is_initialized():
+        dist.barrier()
     return path
 
 
@@ -67,9 +110,14 @@ def auto_resume(ckpt_dir: str, state: TrainState, *,
         return state, None
     device = next(state.model.parameters()).device
     saved = _load(path, device)
-    state.model.load_state_dict(saved["params"])
+    tp = state.mesh.mp
+    state.model.load_state_dict(shard_state_dict(saved["params"], tp.rank,
+                                                 tp.size))
     if not reset_training_state:
-        state.optimizer.load_state_dict(saved["opt_state"])
+        state.optimizer.load_state_dict(_moments(
+            state, saved["opt_state"],
+            lambda v, name: shard_tensor(v, tp_rule(name), tp.rank, tp.size,
+                                         name)))
         state.step = int(saved["step"])
         state.update_step = int(saved["update_step"])
     return state, path
@@ -78,9 +126,12 @@ def auto_resume(ckpt_dir: str, state: TrainState, *,
 def restore_params(path: str, model: nn.Module) -> nn.Module:
     """Load the parameters of a checkpoint directory (or of a ``.pt`` file
     holding a bare state dict) into ``model``, cast to its dtype, for
-    inference."""
+    inference; a tensor-parallel model takes its shard."""
     saved = _load(path, next(model.parameters()).device)
     sd = saved.get("params", saved)
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        sd = shard_state_dict(sd, tp.rank, tp.size)
     dtypes = {k: v.dtype for k, v in model.state_dict().items()}
     model.load_state_dict({k: v.to(dtypes.get(k, v.dtype)) for k, v in sd.items()})
     return model

@@ -1,11 +1,23 @@
-"""One training step on one device (counterpart of the ``shard_map`` path of
-``motion324_tpu/training/train_step.py``).
+"""One training step (counterpart of the ``shard_map`` and ``gspmd`` paths of
+``motion324_tpu/training/train_step.py``), on one device or on every rank
+of a ``(dp, mp)`` mesh.
 
 - Gradients are summed over the micro-batches in ``grad_accum_dtype``
   (float32, or bfloat16 to halve the accumulator's traffic), then cast back
   to the parameters' dtype and divided by their number.
-- ``bf16_grad_allreduce`` keeps the bf16 round trip that the JAX step
-  applies to the gradients before its all-reduce, even on one device.
+- Data parallelism (``parallel_mode`` ``shard_map``, or ``gspmd`` over
+  ``mesh.dp``): each rank takes its share of the batch; the gradients are
+  averaged over ``dp`` in one flat buffer, as the JAX step's ``pmean``, in
+  bf16 on the wire with ``bf16_grad_allreduce`` (on one device the
+  gradients still make that bf16 round trip); the loss and ``xyz_loss``
+  are averaged too. The model is not wrapped in ``DistributedDataParallel``:
+  its reducer fires on ``.backward()`` into ``.grad``, and this step takes
+  its gradients with ``torch.autograd.grad``. The dropout generator's seed
+  takes the rank's ``dp`` index, as the JAX step folds it into its key.
+- Tensor parallelism (``gspmd`` over ``mesh.mp``): the model holds this
+  rank's shards (:mod:`motion324_tpu_torch.parallel.tp`); the global norm
+  adds the squares of the sharded gradients over ``mp`` to those of the
+  replicated ones, taken once, so every rank takes the same decision.
 - Hygiene: ``nan_to_num(0, +-1e-6)`` on every gradient.
 - The pre-clip global norm decides the step: it is skipped when the loss is
   not finite or the norm exceeds ``allowed_gradnorm_factor * grad_clip_norm``.
@@ -18,6 +30,7 @@
 
 Unlike the JAX step, which selects the new state on the device, this one
 reads the skip decision on the host (one synchronisation per step).
+Pipeline parallelism (``parallel_mode=pp``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,14 +41,20 @@ import torch
 from torch import nn
 
 from motion324_tpu_torch.config import TrainConfig
+from motion324_tpu_torch.parallel.collectives import all_reduce_sum, mean_over
+from motion324_tpu_torch.parallel.distributed import is_initialized
+from motion324_tpu_torch.parallel.mesh import Group, Mesh
+from motion324_tpu_torch.parallel.tp import tp_rule
 from motion324_tpu_torch.training.loss import coord_mse_loss
 from motion324_tpu_torch.training.optimizer import create_optimizer, lr_at
 from motion324_tpu_torch.utils.logging import log
 
-__all__ = ["TrainState", "create_train_state", "check_single_device",
+__all__ = ["TrainState", "create_train_state", "check_parallel",
            "train_step", "ACCUM_DTYPES"]
 
 ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the dropout seed's stride between data-parallel ranks
+_DP_SEED_STRIDE = 1_000_000_007
 
 
 @dataclasses.dataclass
@@ -46,46 +65,76 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0          # forward/backward passes
     update_step: int = 0   # applied parameter updates
+    mesh: Mesh = dataclasses.field(default_factory=lambda: Mesh(Group(), Group()))
 
 
-def check_single_device(cfg: TrainConfig) -> None:
-    """Raise for what the port does not train yet: modes other than the
-    data-parallel ``shard_map`` one, and more than one device."""
-    if cfg.parallel_mode in ("gspmd", "pp"):
+def check_parallel(cfg: TrainConfig, world: int | None = None) -> None:
+    """Raise for what the port does not train: pipeline parallelism (not
+    ported yet), an unknown mode, and a mesh (``mesh.dp`` x ``mesh.mp``)
+    that the world's ``world`` processes (default: the process group's
+    size, 1 without one) cannot hold."""
+    if cfg.parallel_mode == "pp":
         raise NotImplementedError(
-            f"training.parallel_mode={cfg.parallel_mode!r} is not ported yet "
-            "(ROADMAP Queue 1 item 11); the port trains on one device")
-    if cfg.parallel_mode != "shard_map":
+            "training.parallel_mode='pp' is not ported yet (ROADMAP Queue 1 "
+            "item 11); use 'shard_map' (data parallel) or 'gspmd' (tensor "
+            "and data parallel)")
+    if cfg.parallel_mode not in ("shard_map", "gspmd"):
         raise ValueError(f"training.parallel_mode={cfg.parallel_mode!r} is not "
                          "one of 'shard_map', 'gspmd', 'pp'")
-    multi = (cfg.mesh_dp not in (-1, 1) or cfg.mesh_mp != 1
-             or (torch.distributed.is_available()
-                 and torch.distributed.is_initialized()
-                 and torch.distributed.get_world_size() > 1))
-    if multi:
-        raise NotImplementedError(
-            "training on more than one device is not ported yet (ROADMAP "
-            "Queue 1 item 11); set mesh.dp=1 and mesh.mp=1")
+    if world is None:
+        world = torch.distributed.get_world_size() if is_initialized() else 1
+    dp, mp = cfg.mesh_dp, cfg.mesh_mp
+    if cfg.parallel_mode == "shard_map" and mp != 1:
+        raise ValueError(f"mesh.mp={mp}: parallel_mode 'shard_map' is data "
+                         "parallel only; tensor parallelism is 'gspmd'")
+    if dp == -1 and world % mp:
+        raise ValueError(f"mesh.mp={mp} needs a world size divisible by {mp}; "
+                         f"the world size is {world}")
+    if dp != -1 and dp * mp != world:
+        raise ValueError(f"mesh.dp x mesh.mp = {dp} x {mp} needs a world size "
+                         f"of {dp * mp}; the world size is {world}")
     if cfg.grad_accum_dtype not in ACCUM_DTYPES:
         raise ValueError("training.grad_accum_dtype must be 'float32' or "
                          f"'bfloat16', got {cfg.grad_accum_dtype!r}")
 
 
-def create_train_state(model: nn.Module, cfg: TrainConfig) -> TrainState:
+def create_train_state(model: nn.Module, cfg: TrainConfig,
+                       mesh: Mesh | None = None) -> TrainState:
     """Freeze the image encoder, set block recomputation from
-    ``training.remat`` and build AdamW over the trainable parameters."""
-    check_single_device(cfg)
+    ``training.remat`` and build AdamW over the trainable parameters.
+    ``mesh``: the ``(dp, mp)`` mesh the step runs on (none: one device);
+    under tensor parallelism the model must be built with ``mesh.mp``."""
+    mesh = mesh or Mesh(Group(), Group())
+    check_parallel(cfg, mesh.dp.size * mesh.mp.size)
+    if mesh.mp.size > 1 and getattr(model, "tp", None) != mesh.mp:
+        raise ValueError("tensor parallelism needs the model built with "
+                         "tp=mesh.mp")
     model.remat = cfg.remat
     if cfg.remat and cfg.remat_policy:
         log(f"training.remat_policy={cfg.remat_policy!r} is a TPU memory "
             "schedule and is not applied; every block is recomputed")
     opt = create_optimizer(model, lr=cfg.lr, beta1=cfg.beta1, beta2=cfg.beta2,
                            weight_decay=cfg.weight_decay)
-    return TrainState(model, opt)
+    return TrainState(model, opt, mesh=mesh)
 
 
 def _params(state: TrainState) -> list[torch.Tensor]:
     return [p for g in state.optimizer.param_groups for p in g["params"]]
+
+
+def _global_norm(state: TrainState, params, grads) -> torch.Tensor:
+    """The norm of the whole model's gradient: under tensor parallelism the
+    squares of the sharded gradients summed over ``mp``, plus those of the
+    replicated ones, once."""
+    tp = state.mesh.mp
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    sharded = [tp.size > 1 and tp_rule(names[id(p)]) is not None
+               for p in params]
+    sq = [g.float().pow(2).sum() for g in grads]
+    zero = torch.zeros((), device=grads[0].device)
+    part = torch.stack([x for x, s in zip(sq, sharded) if s] or [zero]).sum()
+    whole = torch.stack([x for x, s in zip(sq, sharded) if not s] or [zero]).sum()
+    return (all_reduce_sum(part, tp) + whole).sqrt()
 
 
 def train_step(state: TrainState, micro_batches, cfg: TrainConfig,
@@ -94,13 +143,16 @@ def train_step(state: TrainState, micro_batches, cfg: TrainConfig,
     model's device; their number is the accumulation count). Updates
     ``state`` in place and returns ``loss``, ``xyz_loss``, ``grad_norm`` and
     ``skipped``. The dropout mask comes from ``generator``, by default one
-    seeded from ``training.seed`` and the step."""
+    seeded from ``training.seed``, the step and the rank's ``dp`` index.
+    On a mesh, ``micro_batches`` are this rank's share of the batch; the
+    returned loss and norm are the whole batch's."""
     model = state.model
     params = _params(state)
+    dp = state.mesh.dp
     if generator is None:
         device = params[0].device
         generator = torch.Generator(device=device).manual_seed(
-            cfg.seed * 1_000_003 + state.step)
+            cfg.seed * 1_000_003 + state.step + _DP_SEED_STRIDE * dp.rank)
     accum = len(micro_batches)
     acc_dtype = ACCUM_DTYPES[cfg.grad_accum_dtype]
     grads = loss = xyz = None
@@ -119,11 +171,12 @@ def train_step(state: TrainState, micro_batches, cfg: TrainConfig,
     if accum > 1:
         grads = [g.to(p.dtype) / accum for g, p in zip(grads, params)]
         loss, xyz = loss / accum, xyz / accum
-    if cfg.bf16_grad_allreduce:
-        grads = [g.to(torch.bfloat16).to(g.dtype) for g in grads]
+    grads = mean_over(dp, grads,
+                      torch.bfloat16 if cfg.bf16_grad_allreduce else None)
+    loss, xyz = mean_over(dp, [loss, xyz])
     grads = [torch.nan_to_num(g, nan=0.0, posinf=1e-6, neginf=-1e-6)
              for g in grads]
-    gnorm = torch.stack([g.float().pow(2).sum() for g in grads]).sum().sqrt()
+    gnorm = _global_norm(state, params, grads)
     spike = cfg.allowed_gradnorm_factor * cfg.grad_clip_norm
     ok = bool(torch.isfinite(loss) & (gnorm <= spike))
     if ok:

@@ -1,8 +1,16 @@
-"""The host training loop on one device (counterpart of
-``motion324_tpu/training/trainer.py``): model, optimizer, auto-resume, then
-per step {next batch -> train step -> log -> periodic checkpoint}. On CUDA
-the next batch is copied to the card on a side stream while the current
-step runs.
+"""The host training loop (counterpart of
+``motion324_tpu/training/trainer.py``): mesh, model, optimizer,
+auto-resume, then per step {next batch -> train step -> log -> periodic
+checkpoint}. On CUDA the next batch is copied to the card on a side stream
+while the current step runs.
+
+On a ``(dp, mp)`` mesh (one process per card under torchrun) each rank's
+iterator yields that rank's share of the global batch; under tensor
+parallelism (``parallel_mode=gspmd``) the model is built sharded from the
+whole seeded state, and the ranks of one replica train on the batch of its
+``mp`` rank 0, broadcast to the others (a loader's worker threads draw in
+no fixed order, so equal seeds do not give equal batches). Rank 0 alone
+writes the metrics file and the (whole) checkpoints.
 """
 
 from __future__ import annotations
@@ -15,6 +23,8 @@ import torch
 from motion324_tpu_torch import resolve_device
 from motion324_tpu_torch.config import ModelConfig, TrainConfig
 from motion324_tpu_torch.models.motion_model import MotionLatentModel
+from motion324_tpu_torch.parallel.collectives import broadcast_first
+from motion324_tpu_torch.parallel.mesh import Mesh, make_mesh
 from motion324_tpu_torch.training.checkpoints import (auto_resume,
                                                       save_checkpoint)
 from motion324_tpu_torch.training.optimizer import lr_at
@@ -31,18 +41,25 @@ class Trainer:
 
     Each batch is a dict of numpy arrays with leading axis
     ``grad_accum_steps * batch_size_per_device`` (other entries, such as
-    the dataset's ``obj_name`` strings, are dropped). The model computes in
-    ``model_cfg.dtype`` with f32 parameters; ``device`` defaults to CUDA.
+    the dataset's ``obj_name`` strings, are dropped): on a mesh, this
+    rank's share. The model computes in ``model_cfg.dtype`` with f32
+    parameters; ``device`` defaults to CUDA. ``mesh`` defaults to
+    ``make_mesh(mesh.dp, mesh.mp)`` of the config over the process group.
     """
 
     def __init__(self, cfg: TrainConfig, model_cfg: ModelConfig, data_iter,
-                 model: MotionLatentModel | None = None, device=None):
+                 model: MotionLatentModel | None = None, device=None,
+                 mesh: Mesh | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.data_iter = data_iter
+        self.mesh = mesh or make_mesh(cfg.mesh_dp, cfg.mesh_mp)
         if model is None:
-            model = MotionLatentModel(model_cfg, seed=cfg.seed)
-        self.state: TrainState = create_train_state(model.to(self.device), cfg)
+            tp = self.mesh.mp if self.mesh.mp.size > 1 else None
+            model = MotionLatentModel(model_cfg, seed=cfg.seed, tp=tp)
+        self.state: TrainState = create_train_state(model.to(self.device), cfg,
+                                                    self.mesh)
+        self.writer = self.mesh.dp.rank == 0 and self.mesh.mp.rank == 0
         n = sum(p.numel() for p in model.parameters())
         log(f"model: {n / 1e6:.2f}M params on {self.device}, compute "
             f"{model_cfg.dtype}")
@@ -50,16 +67,21 @@ class Trainer:
                              if self.device.type == "cuda" else None)
 
     def _put(self, batch) -> list[dict]:
-        """Host batch -> ``grad_accum_steps`` micro-batch dicts on the device.
-        On CUDA the copy runs from pinned memory on a side stream."""
-        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        """Host batch -> ``grad_accum_steps`` micro-batch dicts on the device,
+        the batch of ``mp`` rank 0 on every rank of the replica. On CUDA the
+        copy (and the broadcast) runs from pinned memory on a side stream."""
+        arrays = {k: np.ascontiguousarray(v) for k, v in batch.items()
+                  if isinstance(v, np.ndarray)}
+        mp = self.mesh.mp if self.mesh.mp.size > 1 else None
         if self._copy_stream is None:
             tensors = {k: torch.from_numpy(v) for k, v in arrays.items()}
+            broadcast_first(list(tensors.values()), mp)
         else:
             with torch.cuda.stream(self._copy_stream):
-                tensors = {k: torch.from_numpy(np.ascontiguousarray(v))
-                           .pin_memory().to(self.device, non_blocking=True)
+                tensors = {k: torch.from_numpy(v).pin_memory()
+                           .to(self.device, non_blocking=True)
                            for k, v in arrays.items()}
+                broadcast_first(list(tensors.values()), mp)
         accum = self.cfg.grad_accum_steps
         return [{k: t.chunk(accum)[i] for k, t in tensors.items()}
                 for i in range(accum)]
@@ -80,7 +102,7 @@ class Trainer:
         state, resumed = auto_resume(cfg.checkpoint_dir, state)
         if resumed:
             log(f"resumed from {resumed} at step {state.step}")
-        logger = MetricsLogger(cfg.checkpoint_dir)
+        logger = MetricsLogger(cfg.checkpoint_dir) if self.writer else None
         it = iter(self.data_iter)
         batch = self._put(next(it))
         last_t = time.perf_counter()
@@ -99,14 +121,18 @@ class Trainer:
                     metrics["iter_time"] = now - last_t
                     metrics["lr"] = lr_at(step, cfg.lr, cfg.warmup, cfg.train_steps)
                     last_t = now
-                    logger.log(metrics, step)
-                    if step % cfg.print_every == 0:
+                    if logger is not None:
+                        logger.log(metrics, step)
+                    if self.writer and step % cfg.print_every == 0:
                         log(f"step {step}: loss={metrics['loss']:.6f} "
                             f"grad_norm={metrics['grad_norm']:.4f} "
                             f"lr={metrics['lr']:.2e} "
                             f"iter={metrics['iter_time'] * 1000:.0f}ms")
                 if step % cfg.checkpoint_every == 0 or step == stop:
-                    log(f"saved checkpoint {save_checkpoint(cfg.checkpoint_dir, state)}")
+                    path = save_checkpoint(cfg.checkpoint_dir, state)
+                    if self.writer:
+                        log(f"saved checkpoint {path}")
         finally:
-            logger.close()
+            if logger is not None:
+                logger.close()
         return state

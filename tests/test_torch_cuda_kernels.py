@@ -2,8 +2,9 @@
 forwards, with and without the LSE output; K3 / K4 flash and K5 head-folded
 backwards; K7 voxel-masked flash attention; K8 the rasterizer; K9 short
 attention forward and backward) against their plain PyTorch versions, on
-the card; and the video-only path (``video_only.run``) launching K1, K2, K6
-and K8.
+the card; the video-only path (``video_only.run``) launching K1, K2, K6
+and K8; K1 at the sequence-parallel shape (a rank's half of the queries
+over all the keys) and a data-parallel step on a one-rank NCCL group.
 
 Every test here needs a CUDA device and skips without one. This file imports
 no JAX, so it also runs on a machine that has only PyTorch; there, skip the
@@ -845,3 +846,64 @@ def test_cuda_video_only_launches_the_paths_kernels(cuda, tmp_path):
     _, faces, traj, _ = load_animated_glb(str(out / "output_animation.glb"))
     assert traj.shape[0] == frames and np.isfinite(traj).all()
     assert len(load_fbx(str(out / "output_animation.fbx"))["shapes"]) == frames
+
+
+# K1 at the shape a rank sees under sequence parallelism over 2 ranks: its
+# 6 of the 12 frames' queries (1 944) over all 3 888 keys
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_at_the_sequence_parallel_shape(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = _bhsd(g, cuda, dtype, 1, 12, 1944, False)
+    k = _bhsd(g, cuda, dtype, 1, 12, 3888, False)
+    v = _bhsd(g, cuda, dtype, 1, 12, 3888, False)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, scale=0.125)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert_matches_plain(out, flash_attention_reference(q, k, v, scale=0.125))
+
+
+@pytest.mark.cuda
+def test_cuda_world_one_nccl_dp_step_is_the_one_process_step(cuda, tmp_path):
+    """The release width at two blocks and one DINOv2 layer, bf16 compute,
+    one clip of 16 frames and 8 192 shape samples (every backward on K4
+    or K5, whose sums run in a fixed order; K3 adds dq in a varying one): a
+    data-parallel step on a one-rank NCCL group gives the parameters of
+    the step with no group, bit for bit."""
+    import torch.distributed as dist
+
+    from motion324_tpu_torch.config import ModelConfig, TrainConfig
+    from motion324_tpu_torch.models.motion_model import MotionLatentModel
+    from motion324_tpu_torch.parallel.mesh import make_mesh
+    from motion324_tpu_torch.training.train_step import (create_train_state,
+                                                         train_step)
+    cfg = ModelConfig(n_alternating_layers=2, pcd_layers=1, dino_depth=1,
+                      dtype=torch.bfloat16, decode_frames_chunk=16)
+    tcfg = TrainConfig(grad_accum_steps=1, warmup=0, remat=False,
+                       allowed_gradnorm_factor=1e9, bf16_grad_allreduce=True)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    batch = {k: rnd(1, 8192, 3) for k in ("ref_shape_pcd", "ref_shape_normals",
+                                          "ref_shape_rgbs", "ref_pcd",
+                                          "ref_normal", "ref_rgb")}
+    batch["rgb_video"] = torch.rand(1, 16, 224, 224, 3, generator=g, device=cuda)
+    batch["point_clouds"] = rnd(1, 16, 8192, 3) * 0.1
+
+    def step(mesh):
+        state = create_train_state(MotionLatentModel(cfg, seed=0).to(cuda),
+                                   tcfg, mesh)
+        metrics = train_step(state, [batch], tcfg)
+        return state.model.state_dict(), metrics
+
+    alone, m_alone = step(None)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        grouped, m_grouped = step(make_mesh())
+    finally:
+        dist.destroy_process_group()
+    assert m_alone == m_grouped and m_alone["skipped"] == 0.0
+    for k, v in alone.items():
+        assert torch.equal(v, grouped[k]), k

@@ -178,6 +178,32 @@ def test_export_and_video_only_modules_load_no_jax_pil_cv2_yaml(module):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+PARALLEL_MODULES = [
+    "motion324_tpu_torch.parallel", "motion324_tpu_torch.parallel.distributed",
+    "motion324_tpu_torch.parallel.mesh",
+    "motion324_tpu_torch.parallel.collectives",
+    "motion324_tpu_torch.parallel.tp"]
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_modules_load_no_jax_pil_cv2_yaml(module):
+    """Each module of the distributed layer alone: no JAX, and PIL, cv2
+    and PyYAML, which the card's machine lacks, stay unloaded; importing
+    builds nothing and starts no process group."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'cv2', 'yaml'))\n"
+            "import torch.distributed as dist\n"
+            "from motion324_tpu_torch.ops import _build\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad or _build._libs or dist.is_initialized() "
+            "else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_batch_cli_raises_without_cuda(no_cuda, tmp_path):
     from motion324_tpu_torch import batch_inference
     (tmp_path / "jobs.txt").write_text("m.glb v.npy\n")

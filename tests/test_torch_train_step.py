@@ -27,7 +27,7 @@ from motion324_tpu_torch.config import ModelConfig, load_train_config
 from motion324_tpu_torch.models.motion_model import MotionLatentModel
 from motion324_tpu_torch.training.loss import coord_mse_loss
 from motion324_tpu_torch.training.optimizer import decays, lr_at
-from motion324_tpu_torch.training.train_step import (check_single_device,
+from motion324_tpu_torch.training.train_step import (check_parallel,
                                                      create_train_state,
                                                      train_step)
 from motion324_tpu_torch.utils.convert import params_from_jax
@@ -276,9 +276,17 @@ def test_dropout_is_drawn_from_the_generator(init):
         torch.testing.assert_close(model(batch), model(batch, train=False))
 
 
-@pytest.mark.parametrize("over", [["training.parallel_mode=gspmd"],
+@pytest.mark.parametrize("over", [["training.parallel_mode=gspmd", "mesh.mp=2"],
                                   ["training.parallel_mode=pp"],
                                   ["mesh.dp=2"]])
 def test_other_modes_name_the_roadmap_item(over):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        check_single_device(load_train_config(YAML, over))
+    """Pipeline parallelism is not ported and names its ROADMAP item; a
+    tensor- or data-parallel mesh of two ranks, without a process group of
+    that size, names the world size it needs."""
+    cfg = load_train_config(YAML, over)
+    if cfg.parallel_mode == "pp":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            check_parallel(cfg)
+    else:
+        with pytest.raises(ValueError, match="needs a world size .*2"):
+            check_parallel(cfg)
