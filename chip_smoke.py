@@ -103,14 +103,25 @@ Phases, each of which raises on failure (exit code non-zero):
    tie-break caught.
 
 14. distributed (last): NCCL at world size 1 in this process (a 16-frame
-   DP step, plain and with the bf16 wire, and parallel="sp" / "tp" predict
-   bit for bit against no group); then two ranks on cuda:0 over gloo,
-   spawned with the kernels already built: SP=2 and TP=2 predict in bf16
-   and f32 against one process (DIST_TRAJ_TOL), DP=2 and TP=2 training
-   steps against one process (TRAIN_TOL on the gradients), per-rank
-   launches by call site, three injected faults (SP without the K/V
-   gather, TP without the row reduce, DP with one rank not averaged) and
-   per-rank times, which are no scaling figure.
+   DP step, plain and with the bf16 wire, and parallel="sp" / "tp" / "pp"
+   predict bit for bit against no group); then two ranks on cuda:0 over
+   gloo, spawned with the kernels already built: SP=2, TP=2 and PP=2
+   predict in bf16 and f32 against one process (DIST_TRAJ_TOL; PP=2 also
+   bit for bit, and TP=2 bf16 bit for bit at TP's shapes), DP=2, TP=2
+   and PP=2 (pp_microbatches=2) training steps against one process
+   (TRAIN_TOL on the gradients), per-rank launches by call site, five
+   injected faults (SP without the K/V gather, TP without the row reduce,
+   PP's rotation dropping the stage hand-off, DP with one rank not
+   averaged, PP with the loss counted on every stage) and per-rank times,
+   which are no scaling figure.
+
+15. evaluation (after the main path): render_video on the main path's
+   animated GLB at 512^2 through K8 in the texture, vertex-colour and
+   Lambertian modes: one K8 launch a frame, face ids bit for bit and the
+   colours against the plain raster path, render seconds, K8's row at this
+   site (render_512); then PSNR / SSIM, LPIPS-VGG16, I3D + FVD, CLIP
+   ViT-bigG-14 and DreamSim's real_ensemble at release width with seeded
+   random towers, each timed.
 
 The kernel phase also holds K7 at the three turbo shapes (on the paint
 path's positions and on random surface positions, with their pair and
@@ -851,7 +862,9 @@ def attention_faults(torch) -> dict:
 E2E_REL_TOL = 1e-2
 
 
-def phase_pipeline(torch, seed: int, repo: str) -> dict:
+def phase_pipeline(torch, seed: int, repo: str, keep: dict | None = None) -> dict:
+    """The main path; ``keep`` (a dict) takes the kernel run's animated GLB
+    (bytes) and its input clip for the evaluation phase."""
     from motion324_tpu_torch.config import ModelConfig
     from motion324_tpu_torch.inference.pipeline import (MotionPipeline,
                                                         load_video,
@@ -899,6 +912,9 @@ def phase_pipeline(torch, seed: int, repo: str) -> dict:
             raise AssertionError(f"main path launches {launches} / {by_site}, "
                                  f"expected {want} / {CLIP_LAUNCHES}")
         _, _, frames, _ = load_animated_glb(out)
+        if keep is not None:
+            with open(out, "rb") as f:
+                keep.update(glb=f.read(), video=synthetic_video(seed))
         if frames.shape != (16, 162, 3) or not np.isfinite(frames).all():
             raise AssertionError(f"bad trajectories: shape {frames.shape}, "
                                  f"finite {np.isfinite(frames).all()}")
@@ -3261,8 +3277,14 @@ def phase_batch(torch, seed: int, repo: str) -> None:
 # shapes (1 to 2.5 bf16 ulps of a trajectory), and reducing f32 partials
 # does not close it (6.8e-3 to 1.03e-2, dist_variants). So TP's bf16
 # limit is 2e-2, 1.46x the largest reading; the faults read 0.110 and up.
+# PP=2 computes each stage's pairs at one process's shapes (one microbatch
+# a window) and hands activations on exactly, so it takes SP's limits and
+# is also held bit for bit to one process in both dtypes (as it reads on
+# the card, PERF.md), which catches a fault of a few ulps in the hand-off.
 DIST_TRAJ_TOL = {("sp", "bfloat16"): E2E_REL_TOL, ("tp", "bfloat16"): 2e-2,
-                 ("sp", "float32"): 1e-5, ("tp", "float32"): 1e-5}
+                 ("pp", "bfloat16"): E2E_REL_TOL,
+                 ("sp", "float32"): 1e-5, ("tp", "float32"): 1e-5,
+                 ("pp", "float32"): 1e-5}
 DIST_LABEL = "2 ranks sharing one H100 over gloo, not a scaling figure"
 
 
@@ -3283,12 +3305,23 @@ def dist_faults(torch) -> dict:
     function that patches the port and returns the undo). The K/V gather
     of the sequence-parallel attention removed (each rank attends to its
     own frames only); the tensor-parallel row layers' reduce removed (each
-    rank keeps its partial sums)."""
+    rank keeps its partial sums); the pipeline's rotation keeping what it
+    receives from the previous stage out (the last stage runs its pairs on
+    zeros)."""
+    def no_handoff():
+        from motion324_tpu_torch.models import motion_model
+        real = motion_model.rotate
+        # the hand-off still runs (both stages stay in step); what arrives
+        # is dropped
+        motion_model.rotate = lambda y, group, send=True, recv=True: real(
+            y, group, send, recv) * 0
+        return lambda: setattr(motion_model, "rotate", real)
     return {"SP without the K/V gather": (
                 "sp", _patch_transformer("all_gather_seq",
                                          lambda x, dim, group: x)),
             "TP without the row-layer reduce": (
-                "tp", _patch_transformer("reduce_from_tp", lambda x, group: x))}
+                "tp", _patch_transformer("reduce_from_tp", lambda x, group: x)),
+            "PP rotation drops the stage hand-off": ("pp", no_handoff)}
 
 
 def dist_variants(torch) -> dict:
@@ -3401,7 +3434,8 @@ def _dist_rank(rank: int, port: int, tmp: str) -> None:
     from motion324_tpu_torch.ops import folded_attention as fo
     from motion324_tpu_torch.parallel import distributed
     from motion324_tpu_torch.parallel.mesh import make_mesh
-    from motion324_tpu_torch.parallel.tp import gather_over, shard_state_dict
+    from motion324_tpu_torch.parallel.pp import (model_part, model_whole,
+                                                 splits_over_mp)
     from motion324_tpu_torch.training import train_step as ts
 
     assert distributed.init_distributed(backend="gloo") == (rank, 2)
@@ -3424,7 +3458,7 @@ def _dist_rank(rank: int, port: int, tmp: str) -> None:
 
     for dname in ("bfloat16", "float32"):
         cfg = ModelConfig(dtype=getattr(torch, dname), decode_frames_chunk=12)
-        for par in ("sp", "tp"):
+        for par in ("sp", "tp", "pp"):
             pipe = MotionPipeline(cfg, state_dict=job["sd"], window=12,
                                   parallel=par, mesh=mesh)
             run = lambda: pipe.predict(job["inputs"], job["video"], segment=True)
@@ -3451,31 +3485,43 @@ def _dist_rank(rank: int, port: int, tmp: str) -> None:
             del pipe
             torch.cuda.empty_cache()
 
-    # training: DP=2 (each rank one clip of each micro-batch) and TP=2
+    # training: DP=2 (each rank one clip of each micro-batch), TP=2 and
+    # PP=2 (the two micro-batches as one batch of pp_microbatches=2)
     mcfg = ModelConfig(dtype=torch.bfloat16, decode_frames_chunk=12,
                        drop_rate=0.0)
-    tcfg = job["tcfg"]
     micros = [{k: v.cuda() for k, v in mb.items()} for mb in job["micros"]]
-    for par, (dp, mp) in (("dp", (2, 1)), ("tp", (1, 2))):
+    whole_batch = [{k: torch.cat([mb[k] for mb in micros]) for k in micros[0]}]
+    for par, (dp, mp) in (("dp", (2, 1)), ("tp", (1, 2)), ("pp", (1, 2))):
         mesh = make_mesh(dp=dp, mp=mp)
-        tp = mesh.mp if mp > 1 else None
-        model = MotionLatentModel(mcfg, seed=None, tp=tp).cuda()
-        model.load_state_dict(shard_state_dict(job["sd"], mesh.mp.rank,
-                                               mp))
-        faults = [False, True] if par == "dp" else [False]
-        for fault in faults:
+        tcfg = job["tcfg"]
+        if par == "pp":
+            tcfg = dataclasses.replace(tcfg, grad_accum_steps=1,
+                                       parallel_mode="pp", mesh_dp=1,
+                                       mesh_mp=2, pp_microbatches=2)
+            model = MotionLatentModel(mcfg, seed=None, pp=mesh.mp,
+                                      pp_microbatches=2).cuda()
+        else:
+            model = MotionLatentModel(mcfg, seed=None, tp=mesh.mp if mp > 1
+                                      else None).cuda()
+        reload = lambda: model.load_state_dict(model_part(model, job["sd"]))
+        reload()
+        for fault in [False, True] if par in ("dp", "pp") else [False]:
             state = ts.create_train_state(model, tcfg, mesh)
             grads = _rank_grads(torch, state)
-            mine = [{k: v[rank:rank + 1] for k, v in mb.items()}
-                    for mb in micros] if par == "dp" else micros
-            real_mean = ts.mean_over
-            if fault and rank == 1:
+            mine = {"dp": [{k: v[rank:rank + 1] for k, v in mb.items()}
+                           for mb in micros],
+                    "tp": micros, "pp": whole_batch}[par]
+            real_mean, real_weight = ts.mean_over, ts._loss_weight
+            if fault and par == "dp" and rank == 1:
                 # rank 1 takes part in the reduce but keeps its own
                 # gradients (the loss, a list of two, is averaged)
                 def local_grads(group, tensors, wire=None):
                     out = real_mean(group, tensors, wire)
                     return tensors if len(tensors) > 2 else out
                 ts.mean_over = local_grads
+            if fault and par == "pp":
+                # the loss counted on every stage, not the last alone
+                ts._loss_weight = lambda pp: 1.0
             zero_launches(fa, fo)
             by_site, undo = launch_spy(fa, fo)
             try:
@@ -3483,32 +3529,30 @@ def _dist_rank(rank: int, port: int, tmp: str) -> None:
                 torch.cuda.synchronize()
             finally:
                 undo()
-                ts.mean_over = real_mean
-            whole = gather_over({k: v.cuda() for k, v in grads.items()},
-                                mesh.mp)
+                ts.mean_over, ts._loss_weight = real_mean, real_weight
+            grads = {k: v.cuda() for k, v in grads.items()}
+            whole = model_whole(model, grads)
             key = f"{par}_fault" if fault else par
             res[key] = {"metrics": metrics,
                         "grads": {k: v.float().cpu() for k, v in whole.items()}}
             if not fault:
                 res["launches"][(par, "train")] = dict(by_site)
-                model.load_state_dict(shard_state_dict(job["sd"],
-                                                       mesh.mp.rank, mp))
+                reload()
                 state = ts.create_train_state(model, tcfg, mesh)
                 timed((par, "step"), lambda: ts.train_step(state, mine, tcfg))
-            model.load_state_dict(shard_state_dict(job["sd"],
-                                                   mesh.mp.rank, mp))
+            reload()
         del model, state
         torch.cuda.empty_cache()
+    tcfg = job["tcfg"]
     # the Trainer at TP=2 with position dropout, each rank's loader yielding
     # another batch (rank 1 the micro-batches in reverse): the replica
     # trains on rank 0's, broadcast on the copy stream, so its replicated
     # parameters stay bit-equal (no checkpoint is written)
-    from motion324_tpu_torch.parallel.tp import tp_rule
     from motion324_tpu_torch.training import trainer as tr
     mesh = make_mesh(dp=1, mp=2)
     model = MotionLatentModel(dataclasses.replace(mcfg, drop_rate=0.1),
                               seed=None, tp=mesh.mp).cuda()
-    model.load_state_dict(shard_state_dict(job["sd"], mesh.mp.rank, 2))
+    model.load_state_dict(model_part(model, job["sd"]))
     order = job["micros"] if rank == 0 else job["micros"][::-1]
     batch = {k: torch.cat([mb[k] for mb in order]).numpy() for k in order[0]}
     cfg = dataclasses.replace(tcfg, parallel_mode="gspmd", mesh_dp=1,
@@ -3521,7 +3565,7 @@ def _dist_rank(rank: int, port: int, tmp: str) -> None:
         tr.save_checkpoint = real_save
     same = True
     for k, v in state.model.state_dict().items():
-        if tp_rule(k) is None:
+        if not splits_over_mp(state.model, k):
             parts = [torch.empty_like(v) for _ in range(2)]
             torch.distributed.all_gather(parts, v.contiguous(),
                                          group=mesh.mp.group)
@@ -3533,6 +3577,23 @@ def _dist_rank(rank: int, port: int, tmp: str) -> None:
     distributed.destroy()
 
 
+def dist_launches(par: str, what: str, accum: int) -> dict:
+    """A rank's launches by call site in the two-rank runs: one process's
+    for SP, TP and DP (DP per micro-batch of ``accum``); a PP=2 stage runs
+    the encoders, DINOv2 and the decoder whole and its 4 of the 8 pairs, so
+    a clip holds half of one process's global and local launches, and a
+    step over pp_microbatches=2 (2 clips each) one process's launches for
+    one micro-batch."""
+    if what != "train":
+        want = dict(CLIP_LAUNCHES)
+        if par == "pp":
+            for site in (("flash_fwd", "global"), ("folded_fwd", "local")):
+                want[site] //= 2
+        return want
+    return {k: v * (1 if par == "pp" else accum)
+            for k, v in TRAIN_LAUNCHES.items() if v}
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -3541,21 +3602,24 @@ def _free_port() -> int:
 
 
 def phase_distributed(torch, seed: int, repo: str) -> None:
-    """Data, tensor and sequence parallelism through the port's entry
-    points. (1) NCCL at world size 1, in this process: a release-width
+    """Data, tensor, sequence and pipeline parallelism through the port's
+    entry points. (1) NCCL at world size 1, in this process: a release-width
     bf16 DP step at 16 frames and 8 192 shape samples (K1/K2 with the LSE,
     K4, K5: kernels whose sums run in a fixed order) gives the parameters
     of the same step with no group bit for bit, plain and with the bf16
-    wire; ``parallel="sp"``
-    and ``"tp"`` give the plain pipeline's trajectories bit for bit.
+    wire; ``parallel="sp"``, ``"tp"`` and ``"pp"`` give the plain
+    pipeline's trajectories bit for bit.
     (2) Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
-    card), the kernels built here and loaded there: SP=2 and TP=2
+    card), the kernels built here and loaded there: SP=2, TP=2 and PP=2
     ``predict`` in bf16 and f32 against the one-process kernel path
-    (DIST_TRAJ_TOL); a DP=2 and a TP=2 training step against the
-    one-process step over the same global batch (TRAIN_TOL on the
-    gradients the optimizer is handed); per-rank launches by call site.
+    (DIST_TRAJ_TOL; PP=2 bit for bit besides); a DP=2, a TP=2 and a PP=2
+    (pp_microbatches=2) training step against the one-process step over
+    the same global batch (TRAIN_TOL on the gradients the optimizer is
+    handed); per-rank launches by call site (``dist_launches``).
     (3) Injected faults outside those limits: SP without the K/V gather,
-    TP without the row reduce, DP with one rank's gradients not averaged.
+    TP without the row reduce, PP's rotation dropping the stage hand-off,
+    DP with one rank's gradients not averaged, PP with the loss counted
+    on every stage.
     (4) Per-rank times, labelled as no scaling figure."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
@@ -3642,7 +3706,7 @@ def phase_distributed(torch, seed: int, repo: str) -> None:
             del a, b
         torch.cuda.empty_cache()
         cfg = ModelConfig(dtype=torch.bfloat16, decode_frames_chunk=12)
-        for par in ("sp", "tp"):
+        for par in ("sp", "tp", "pp"):
             pipe = MotionPipeline(cfg, state_dict=sd, window=12, parallel=par)
             same = np.array_equal(pipe.predict(inputs, video, segment=True),
                                   ref["bfloat16"])
@@ -3692,8 +3756,7 @@ def phase_distributed(torch, seed: int, repo: str) -> None:
         capture_output=True, text=True).stdout.strip().splitlines()[0]
     for r, res in enumerate(got):
         for (par, what), by_site in res["launches"].items():
-            want = (CLIP_LAUNCHES if what != "train" else
-                    {k: v * tcfg.grad_accum_steps for k, v in TRAIN_LAUNCHES.items() if v})
+            want = dist_launches(par, what, tcfg.grad_accum_steps)
             ok = by_site == want
             log(f"  rank {r} {par} {what}: launches by call site "
                 f"{dict(sorted(by_site.items()))}{'' if ok else ' (UNEXPECTED)'}")
@@ -3714,6 +3777,13 @@ def phase_distributed(torch, seed: int, repo: str) -> None:
                 f"(tol {rel:.0e})")
             if not err <= tol:
                 problems.append(f"{par} {dname} rank {r}: {err:.3e} > {tol:.3e}")
+    for dname in ref:
+        same = [np.array_equal(res[("pp", dname)], ref[dname]) for res in got]
+        log(f"  PP=2 {dname} against one process: bit for bit on ranks "
+            f"{same} (each stage's pairs at one process's shapes)")
+        if not all(same):
+            problems.append(f"PP=2 {dname} differs from one process on ranks "
+                            f"{[r for r, x in enumerate(same) if not x]}")
     e = float(np.abs(ref_split - ref["bfloat16"]).max())
     log(f"  one process at TP=2's matrix shapes and bf16 sums against one "
         f"process: {e:.3e} = {e / scale['bfloat16']:.3e} x max|traj|")
@@ -3746,7 +3816,7 @@ def phase_distributed(torch, seed: int, repo: str) -> None:
                 f"{'caught' if e > tol else 'MISSED'}")
             if not e > tol:
                 problems.append(f"fault missed: {name} rank {r}")
-    for key in ("dp", "tp", "dp_fault"):
+    for key in ("dp", "tp", "pp", "dp_fault", "pp_fault"):
         for r, res in enumerate(got):
             total, worst, worst_name = grad_errors(res[key]["grads"], ref_grads)
             m = res[key]["metrics"]
@@ -3762,10 +3832,214 @@ def phase_distributed(torch, seed: int, repo: str) -> None:
             if key == "dp_fault" and r == 1 and not bad:
                 problems.append("fault missed: DP with rank 1's gradients "
                                 "not averaged")
-            if key != "dp_fault" and bad:
+            if key == "pp_fault" and not bad:
+                problems.append(f"fault missed: PP with the loss counted on "
+                                f"every stage, rank {r}")
+            if not key.endswith("_fault") and bad:
                 problems.append(f"{key} step rank {r} outside {bad}")
     if problems:
         raise AssertionError("; ".join(problems))
+
+
+EVAL_RES = 512          # the render, as the evaluation protocol scores it
+# max |K8 render - plain-raster render| per colour channel in [0, 1]. The
+# face ids are held bit for bit; with them the two renders run the same
+# shading, but the vertex normals are summed with atomics (index_add on
+# the card), so the colours differ by float rounding: up to 1.013e-6,
+# 9.24e-7 and 1.103e-6 in three runs of this phase (seed 0) on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md, Findings), 9x below the limit.
+EVAL_COLOUR_TOL = 1e-5
+
+
+def plain_rasterize(torch):
+    """:func:`rasterize` on its plain raster path (``raster_reference``) on
+    the inputs' device, for the evaluation phase's comparison."""
+    from motion324_tpu_torch.ops import rasterizer as ra
+
+    def rasterize(pos, faces, width, height):
+        pos = torch.as_tensor(pos, dtype=torch.float32)
+        faces = torch.as_tensor(faces, device=pos.device).long()
+        coeffs, bbox = ra.bin_faces(pos, faces, width, height)
+        find = ra.raster_reference(coeffs, bbox, width, height).reshape(
+            height, width)
+        return find, ra.barycentrics(pos, faces, find, width, height)
+    return rasterize
+
+
+def eval_metrics(torch, video: np.ndarray, renders: dict) -> None:
+    """The video protocol's metrics at release width with seeded random
+    towers, each timed (host clock around work that ends in a
+    synchronise): PSNR / SSIM on the host, LPIPS-VGG16, I3D + FVD, CLIP
+    ViT-bigG-14 (``CLIPVisionCfg()``) and DreamSim's ``real_ensemble`` on
+    the card, of the renders against the input clip on the 512^2,
+    32-frame protocol. Raises on a value outside its range."""
+    from motion324_tpu_torch.evaluation import clip_sim as cs
+    from motion324_tpu_torch.evaluation import video_metrics as vm
+    from motion324_tpu_torch.evaluation.i3d import i3d_feature_fn
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        shown = (f"{out:.6g}" if isinstance(out, float) else
+                 f"shape {out.shape}" if isinstance(out, np.ndarray) else "built")
+        log(f"  {name}: {shown} in {dt:.4f} s ({smi})")
+        return out
+
+    gt = timed("protocol: the clip to 512^2 x 32 frames (host)",
+               lambda: vm.prepare_video(video.astype(np.float32) / 255.0))
+    preds = {m: vm.prepare_video(r) for m, r in renders.items()}
+    pred = preds["vertex_colors"]
+    n = len(gt)
+    values = {}
+    values["psnr"] = timed("PSNR (host, mean of 32 frames)", lambda: float(
+        np.mean([vm.psnr(gt[i], pred[i]) for i in range(n)])))
+    values["ssim"] = timed("SSIM (host, mean of 32 frames)", lambda: float(
+        np.mean([vm.ssim(gt[i], pred[i]) for i in range(n)])))
+    lpips = timed("LPIPS-VGG16 to the card", lambda: vm.LPIPSVGG(seed=0).cuda())
+    values["lpips"] = timed("LPIPS-VGG16 (32 frame pairs, 8 a batch)",
+                            lambda: vm.lpips_distance(gt, pred, lpips))
+    fn = i3d_feature_fn(device="cuda")
+    fvd_sets = ([gt, gt[:, :, ::-1]], [preds["vertex_colors"], preds["texture"]])
+    values["fvd"] = timed("I3D + FVD (4 clips of 32 frames at 224^2, "
+                          "2 against 2)", lambda: vm.compute_fvd(*fvd_sets, fn))
+    with torch.device("cuda"):   # seeded on the card
+        tower = timed("CLIP ViT-bigG-14 built", lambda: cs.CLIPVisionTower(
+            cs.CLIPVisionCfg()))
+        dreamsim = timed("DreamSim real_ensemble built",
+                         cs.DreamSim.real_ensemble)
+    log(f"  CLIP bigG-14: {sum(p.numel() for p in tower.parameters()) / 1e9:.3f} "
+        f"B parameters; DreamSim real_ensemble: "
+        f"{sum(p.numel() for p in dreamsim.parameters()) / 1e6:.1f} M")
+    values["clip_sim"] = timed("CLIP similarity (bigG-14, 32 frame pairs)",
+                               lambda: cs.clip_similarity(gt, pred, tower=tower))
+    values["dreamsim"] = timed("DreamSim real_ensemble (32 frame pairs)",
+                               lambda: dreamsim(gt, pred))
+    del lpips, fn, tower, dreamsim
+    torch.cuda.empty_cache()
+    log(f"  metrics (seeded random towers: relative-only values): {values}")
+    ranges = {"psnr": (0, 100), "ssim": (-1, 1), "lpips": (0, np.inf),
+              "fvd": (-1e-3, np.inf), "clip_sim": (-1, 1), "dreamsim": (0, 2)}
+    bad = [k for k, (lo, hi) in ranges.items()
+           if not (np.isfinite(values[k]) and lo <= values[k] <= hi)]
+    if bad:
+        raise AssertionError(f"evaluation metrics out of range: {bad} {values}")
+
+
+def phase_evaluation(torch, seed: int, keep: dict) -> tuple[list, dict]:
+    """The evaluation stack on the main path's output: the pipeline phase's
+    animated GLB (blob.glb's 16 frames) rendered by ``render_video`` at
+    512^2 through K8 in its three modes (the GLB's vertex colours, a seeded
+    512^2 texture on its UVs, Lambertian): one K8 launch a frame, each
+    frame's face ids bit for bit against the plain version and the colours
+    against a render on the plain raster path (EVAL_COLOUR_TOL); the render
+    time; K8 at this site timed beside its plain version and its bound;
+    then the video metrics (``eval_metrics``). Returns (the K8 row, its
+    launches)."""
+    from motion324_tpu_torch.evaluation import render_video as rv
+    from motion324_tpu_torch.io.glb import load_animated_glb, load_glb
+    from motion324_tpu_torch.ops import flash_attention as fa
+    from motion324_tpu_torch.ops import folded_attention as fo
+    from motion324_tpu_torch.ops import rasterizer as ra
+    with tempfile.TemporaryDirectory() as tmp:
+        glb = os.path.join(tmp, "output_animation.glb")
+        with open(glb, "wb") as f:
+            f.write(keep["glb"])
+        base = load_glb(glb)
+        _, faces, frames, _ = load_animated_glb(glb)
+        tex = np.random.RandomState(seed).rand(EVAL_RES, EVAL_RES, 3)
+        modes = {"vertex_colors": lambda: rv.render_animated_glb(
+                     glb, resolution=EVAL_RES, device="cuda"),
+                 "texture": lambda: rv.render_animated_mesh(
+                     frames, faces, uv=base["uv"], texture=tex,
+                     resolution=EVAL_RES, device="cuda"),
+                 "shaded": lambda: rv.render_animated_mesh(
+                     frames, faces, resolution=EVAL_RES, device="cuda")}
+        for run in modes.values():   # warm-up
+            run()
+        positions, real = [], rv.rasterize
+
+        def spy(pos, faces_, w, h):
+            positions.append((pos, faces_))
+            return real(pos, faces_, w, h)
+        zero_launches(fa, fo)
+        record: list = []
+        by_site, undo = launch_spy(fa, fo, record)
+        rv.rasterize = spy
+        renders, seconds = {}, {}
+        try:
+            for mode, run in modes.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                renders[mode] = run()
+                seconds[mode] = time.perf_counter() - t0
+        finally:
+            rv.rasterize = real
+            undo()
+        launches = read_launches(fa, fo)
+        rv.rasterize = plain_rasterize(torch)
+        try:
+            plain = {mode: run() for mode, run in modes.items()}
+        finally:
+            rv.rasterize = real
+    n_frames = len(frames)
+    want = {k: (3 * n_frames if k == "rasterize" else 0) for k in launches}
+    k8 = by_site.get(("rasterize", f"raster_{EVAL_RES}"), 0)
+    log(f"  render_video: {n_frames} frames of {len(faces)} faces at "
+        f"{EVAL_RES}^2 in 3 modes; launches {launches}; by call site "
+        f"{dict(sorted(by_site.items()))}")
+    for mode in modes:
+        log(f"  render {mode}: {seconds[mode]:.4f} s for {n_frames} frames "
+            f"({1e3 * seconds[mode] / n_frames:.3f} ms a frame, host clock, "
+            f"frames back on the host); covered "
+            f"{float((renders[mode] < 1).any(-1).mean()):.4f}")
+    problems = []
+    if launches != want or k8 != 3 * n_frames:
+        problems.append(f"render launches {launches} / {by_site}, expected "
+                        f"{want}")
+    diff = sum(int((out != ra.raster_reference(c, b, w, h)).sum())
+               for c, b, w, h, out in record)
+    log(f"  K8 at the render site: {len(record)} calls, findices differing "
+        f"from the plain version {diff}")
+    if diff or len(record) != 3 * n_frames:
+        problems.append(f"K8 render findices differ ({diff}) or calls "
+                        f"{len(record)}")
+    for mode in modes:
+        e = float(np.abs(renders[mode] - plain[mode]).max())
+        log(f"  render {mode}: max|K8 - plain raster| {e:.3e} "
+            f"(tol {EVAL_COLOUR_TOL:.0e})")
+        if not e <= EVAL_COLOUR_TOL:
+            problems.append(f"render {mode} colours differ: {e:.3e}")
+    # K8's row at this site: frame 0 of the GLB's own render
+    pos, fc = positions[0]
+    coeffs, bbox = ra.bin_faces(pos, fc, EVAL_RES, EVAL_RES)
+    ms = time_ms(torch, lambda: ra.raster_kernel(coeffs, bbox, EVAL_RES,
+                                                 EVAL_RES))
+    plain_ms = time_ms(torch, lambda: ra.raster_reference(
+        coeffs, bbox, EVAL_RES, EVAL_RES), n=1, reps=3)
+    needed = ra.bbox_pairs(pos, fc, EVAL_RES, EVAL_RES)
+    t_ops = 10.0 * needed / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = 4.0 * (coeffs.numel() + bbox.numel()
+                     + EVAL_RES * EVAL_RES) / PEAK_BYTES * 1e3
+    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                               else "bytes")
+    log(f"  rasterize render_{EVAL_RES}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; pairs in "
+        f"face bboxes {needed})")
+    row = dict(kernel="rasterize", case=f"render_{EVAL_RES}", dtype="int32",
+               main=True, max_abs_err=float(diff), ms=ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    del coeffs, bbox, positions, record
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    eval_metrics(torch, keep["video"], renders)
+    return [row], {("rasterize", f"render_{EVAL_RES}"): k8}
 
 
 def main(argv=None) -> int:
@@ -3800,7 +4074,14 @@ def main(argv=None) -> int:
            "versions")
     rows += phase_short_kernels(torch, args.seed)
     header("main path: MotionPipeline.run, release width, bf16")
-    launches = phase_pipeline(torch, args.seed, repo)
+    evaluation: dict = {}
+    launches = phase_pipeline(torch, args.seed, repo, evaluation)
+    header("evaluation: render_video through K8 at 512^2, the video metrics "
+           "at release width")
+    eval_rows, eval_launches = phase_evaluation(torch, args.seed, evaluation)
+    rows += eval_rows
+    launches.update(eval_launches)
+    del evaluation
     header("legacy route: MotionPipeline.run with attn_backend='short_legacy'")
     launches.update((k, n) for k, n in phase_legacy_pipeline(
         torch, args.seed, repo).items() if k[0].startswith("short"))
@@ -3825,8 +4106,8 @@ def main(argv=None) -> int:
     header("video-only path: video_only.run, preprocess -> shape -> paint -> "
            "motion -> GLB + FBX, release width, bf16")
     phase_video_only(torch, args.seed, keep)
-    header("distributed: DP and TP training, TP and SP inference; NCCL at "
-           "world size 1, two ranks on the card over gloo")
+    header("distributed: DP, TP and PP training, TP, SP and PP inference; "
+           "NCCL at world size 1, two ranks on the card over gloo")
     phase_distributed(torch, args.seed, repo)
     header("done")
 

@@ -19,9 +19,10 @@ is the release model of ``configs/dyscene.yaml`` in bf16. ``--u2net``
 segments with U2Net on the device instead of the border fallback. A video
 is an mp4 (needs cv2) or a ``.npy`` array of frames.
 
-``--parallel tp|sp`` under ``torchrun --nproc-per-node N`` splits the model
-(tp: heads) or each window's frames (sp) over the N ranks, one card each;
-``mp`` is the world size, and rank 0 writes the GLBs.
+``--parallel tp|sp|pp`` under ``torchrun --nproc-per-node N`` splits the
+model (tp: heads; pp: the alternating stack's pairs, in stages) or each
+window's frames (sp) over the N ranks, one card each; ``mp`` is the world
+size, and rank 0 writes the GLBs.
 """
 
 from __future__ import annotations
@@ -63,8 +64,7 @@ def read_jobs(path: str) -> tuple[list[tuple[str, str]], list[str]]:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
-        epilog="Not in the port: --parallel pp (pipeline parallel, ROADMAP "
-               "Queue 1 item 11); --yuv-upload (I420 frames) was built for "
+        epilog="Not in the port: --yuv-upload (I420 frames) was built for "
                "the TPU's host link and stays with the JAX package's "
                "scripts/batch_inference.py.")
     parser.add_argument("--list", required=True, dest="list_path",
@@ -80,9 +80,10 @@ def main(argv=None) -> int:
                              "a time (B=1 runs them one by one)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--parallel", choices=("tp", "sp"), default=None,
-                        help="under torchrun: tensor (tp) or sequence (sp) "
-                             "parallel over the ranks, mp = world size")
+    parser.add_argument("--parallel", choices=("tp", "sp", "pp"), default=None,
+                        help="under torchrun: tensor (tp), sequence (sp) or "
+                             "pipeline (pp) parallel over the ranks, mp = "
+                             "world size")
     parser.add_argument("overrides", nargs="*", help="key.path=value")
     args = parser.parse_args(argv)
 

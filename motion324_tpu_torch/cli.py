@@ -17,7 +17,8 @@ On several cards, one process each, under torchrun:
     torchrun --nproc-per-node N -m motion324_tpu_torch.cli --parallel sp ...
 
 ``--parallel tp`` splits the model's heads over the N ranks, ``sp`` each
-window's frames (the window must divide by N); ``mp`` is the world size,
+window's frames (the window must divide by N), ``pp`` the alternating
+stack's pairs into N pipeline stages; ``mp`` is the world size,
 as the JAX script's ``make_mesh(dp=1, mp=len(devices))``, and at world
 size 1 the model runs whole. Rank 0 writes the GLB.
 """
@@ -47,9 +48,10 @@ def main(argv=None) -> int:
                              "device instead of the border fallback")
     parser.add_argument("--exact", action="store_true",
                         help="f32 video upload (no uint8 quantization)")
-    parser.add_argument("--parallel", choices=("tp", "sp"), default=None,
-                        help="under torchrun: tensor (tp) or sequence (sp) "
-                             "parallel over the ranks, mp = world size")
+    parser.add_argument("--parallel", choices=("tp", "sp", "pp"), default=None,
+                        help="under torchrun: tensor (tp), sequence (sp) or "
+                             "pipeline (pp) parallel over the ranks, mp = "
+                             "world size")
     args = parser.parse_args(argv)
 
     import torch

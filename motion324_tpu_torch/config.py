@@ -179,6 +179,7 @@ class TrainConfig:
     num_workers: int = 8
     prefetch_factor: int = 2
     parallel_mode: str = "shard_map"
+    pp_microbatches: int = 1         # GPipe microbatches (parallel_mode pp)
     mesh_dp: int = -1
     mesh_mp: int = 1
 

@@ -33,7 +33,11 @@ trajectories, and rank 0 alone writes the GLB:
   gathered in rank order. The window must divide by the group's size; a
   clip shorter than the window whose frame count does not divide runs
   whole on every rank.
-- ``"pp"`` (pipeline parallel) is not ported yet.
+- ``"pp"``: pipeline parallel over ``mesh.mp``: each rank holds a stage of
+  the alternating stack's pairs (:mod:`motion324_tpu_torch.parallel.pp`)
+  and runs its encoders and the decoder replicated; each window's
+  activations pass from stage to stage once (one microbatch), and every
+  rank gets the last stage's tokens.
 """
 
 from __future__ import annotations
@@ -167,7 +171,7 @@ def to_blender_coords(trajs: np.ndarray) -> np.ndarray:
     return out
 
 
-PARALLEL_MODES = (None, "tp", "sp")
+PARALLEL_MODES = (None, "tp", "sp", "pp")
 
 
 class MotionPipeline:
@@ -185,9 +189,9 @@ class MotionPipeline:
     JAX package) as ``seg_net``. A call that is given its own weights uses
     those, for that call.
 
-    ``parallel``: None, ``"tp"`` or ``"sp"`` over ``mesh.mp`` (default:
-    ``make_mesh(dp=1, mp=world size)`` of the process group; at world size
-    1 the model runs whole). ``"pp"`` raises ``NotImplementedError``.
+    ``parallel``: None, ``"tp"``, ``"sp"`` or ``"pp"`` over ``mesh.mp``
+    (default: ``make_mesh(dp=1, mp=world size)`` of the process group; at
+    world size 1 the model runs whole).
     """
 
     def __init__(self, cfg: ModelConfig, state_dict=None, window: int = 12,
@@ -198,10 +202,6 @@ class MotionPipeline:
         self.cfg = cfg
         self.window = window
         self.decode_chunk = decode_chunk
-        if parallel == "pp":
-            raise NotImplementedError(
-                "parallel='pp' (pipeline parallel) is not ported yet (ROADMAP "
-                "Queue 1 item 11); use 'tp' or 'sp'")
         if parallel not in PARALLEL_MODES:
             raise ValueError(f"parallel must be None, 'tp', 'sp' or 'pp', not "
                              f"{parallel!r}")
@@ -217,7 +217,8 @@ class MotionPipeline:
         # rank 0 writes the outputs
         self.writer = not is_initialized() or torch.distributed.get_rank() == 0
         model = MotionLatentModel(cfg, seed=seed if state_dict is None else None,
-                                  tp=mesh.mp if parallel == "tp" else None)
+                                  tp=mesh.mp if parallel == "tp" else None,
+                                  pp=mesh.mp if parallel == "pp" else None)
         if state_dict is not None:
             load_reference_state_dict(model, state_dict)
         self.model = model.to(device=self.device, dtype=cfg.dtype).eval()

@@ -23,6 +23,16 @@ position table is sized to the global frame count and sliced at the
 block's offset, the frame-0 special token goes only where frame 0 lives,
 and only the global block of each pair communicates (K/V gathered over the
 group); DINOv2, the local blocks and ``decode_points`` stay frame-local.
+
+Pipeline parallelism: built with a ``pp`` group, the model holds its
+stage's ``n_pairs / pp`` pairs (:mod:`motion324_tpu_torch.parallel.pp`;
+a seeded PP model is its stage of the seeded whole model) and runs them in
+a GPipe schedule of ``pp_microbatches + pp - 1`` ticks: stage 0 reads
+microbatch ``min(i, m - 1)`` at tick ``i``, later stages what the previous
+stage sent at tick ``i - 1``, and the last stage's outputs are handed to
+every stage. A stage computes only at the ticks that hold one of its
+microbatches (at the others JAX's program computes values that no output
+reads). The rest of the model is replicated on every stage.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ from motion324_tpu_torch.ops.embeddings import (apply_point_basis,
                                                 point_embed_basis,
                                                 resize_pos_embed,
                                                 video_pos_embed)
+from motion324_tpu_torch.parallel.pp import (broadcast_last, rotate,
+                                             split_state_dict, stage_pairs)
 from motion324_tpu_torch.parallel.tp import shard_state_dict
 
 __all__ = ["MotionLatentModel", "init_weights"]
@@ -76,12 +88,18 @@ class MotionLatentModel(nn.Module):
     :class:`~motion324_tpu_torch.parallel.mesh.Group`) this model's shards
     are split over; its state dict then holds this rank's shard
     (:func:`~motion324_tpu_torch.parallel.tp.shard_state_dict`).
+    ``pp``: the pipeline-parallel group; the state dict then holds this
+    stage's pairs (:func:`~motion324_tpu_torch.parallel.pp.split_state_dict`)
+    and a forward's batch must divide by ``pp_microbatches``.
     """
 
-    def __init__(self, cfg: ModelConfig, seed: int | None = 0, tp=None):
+    def __init__(self, cfg: ModelConfig, seed: int | None = 0, tp=None,
+                 pp=None, pp_microbatches: int = 1):
         super().__init__()
         self.cfg = c = cfg
         self.tp = tp
+        self.pp = pp if pp is not None and pp.size > 1 else None
+        self.pp_microbatches = pp_microbatches
         self.remat = False   # recompute each block in the backward (training)
         kw = dict(head_dim=c.head_dim, use_qk_norm=c.use_qk_norm,
                   attn_backend=c.attn_backend, tp=tp)
@@ -103,6 +121,8 @@ class MotionLatentModel(nn.Module):
             attn_backend="plain" if c.attn_backend == "plain" else None,
             tp=tp))
         n_pairs = c.n_alternating_layers // 2
+        if self.pp is not None:
+            n_pairs = stage_pairs(n_pairs, self.pp.size)
         self.global_transformer_blocks = nn.ModuleList(
             TransformerBlock(d, **kw) for _ in range(n_pairs))
         self.local_transformer_blocks = nn.ModuleList(
@@ -115,7 +135,11 @@ class MotionLatentModel(nn.Module):
             "video_pos_embed",
             torch.from_numpy(video_pos_embed(c.frames, c.grid, c.grid, d)),
             persistent=False)
-        if seed is not None and tp is not None:
+        if seed is not None and self.pp is not None:
+            whole = MotionLatentModel(cfg, seed=seed).state_dict()
+            self.load_state_dict(split_state_dict(
+                whole, self.pp.rank, self.pp.size, c.n_alternating_layers // 2))
+        elif seed is not None and tp is not None:
             whole = MotionLatentModel(cfg, seed=seed).state_dict()
             self.load_state_dict(shard_state_dict(whole, tp.rank, tp.size))
         elif seed is not None:
@@ -196,12 +220,43 @@ class MotionLatentModel(nn.Module):
 
         l = c.frame_tokens
         x = tokens.reshape(b, t * l, c.feat_dim)
+        x = self._stack(x, t, sp) if self.pp is None else self._gpipe(x, t)
+        return x.reshape(b, t, l, c.feat_dim)[:, :, 4:4 + c.tokens]
+
+    def _stack(self, x, t: int, sp=None):
+        """This model's pairs over flat ``(B, T L, C)`` tokens."""
+        b, _, d = x.shape
+        l = self.cfg.frame_tokens
         for glob, loc in zip(self.global_transformer_blocks,
                              self.local_transformer_blocks):
             x = self._block(glob, x, sp=sp)
-            x = self._block(loc, x.reshape(b * t, l, c.feat_dim)).reshape(
-                b, t * l, c.feat_dim)
-        return x.reshape(b, t, l, c.feat_dim)[:, :, 4:4 + c.tokens]
+            x = self._block(loc, x.reshape(b * t, l, d)).reshape(b, t * l, d)
+        return x
+
+    def _gpipe(self, x, t: int):
+        """The GPipe schedule of the stage's pairs; every stage returns the
+        last stage's ``(B, T L, C)`` output."""
+        pp, m = self.pp, self.pp_microbatches
+        b = x.shape[0]
+        if b % m:
+            raise ValueError(f"batch {b} not divisible by "
+                             f"pp_microbatches={m}")
+        d, p = pp.rank, pp.size
+        xm = x.reshape(m, b // m, *x.shape[1:])
+        # torch.where keeps both inputs in the graph on every stage, so that
+        # every stage runs the same rotations backward
+        first = torch.tensor(d == 0, device=x.device)
+        carry = torch.zeros_like(xm[0])
+        outs = []
+        for i in range(m + p - 1):
+            inp = torch.where(first, xm[min(i, m - 1)], carry)
+            mine = d <= i < d + m      # tick i holds microbatch i - d here
+            y = self._stack(inp, t) if mine else inp
+            if i >= p - 1:
+                outs.append(y)
+            if i < m + p - 2:          # the last tick's rotation is unused
+                carry = rotate(y, pp, send=mine, recv=d <= i + 1 < d + m)
+        return broadcast_last(torch.cat(outs), pp)
 
     def decode_points(self, pcd_tokens, pcd, normals, rgbs):
         """Per-frame tokens + query points -> ``(B, T, N, 3)`` float32.

@@ -6,7 +6,8 @@ column-parallel layer, identity forward and all-reduce of the gradient;
 partial sums and identity backward. :func:`all_gather_seq` gathers the
 sequence shards of K/V in rank order, as ``all_gather(..., tiled=True)``
 does in the JAX package's sequence-parallel attention. :func:`mean_over`
-averages the data-parallel gradients in one flat buffer, as ``lax.pmean``.
+averages the data-parallel gradients in one flat buffer, as ``lax.pmean``,
+and :func:`sum_over` sums the pipeline stages' gradients, as ``lax.psum``.
 :func:`broadcast_first` hands the ranks of a group the tensors of its
 first rank (the batch of a tensor-parallel replica).
 
@@ -23,7 +24,7 @@ import torch.distributed as dist
 from motion324_tpu_torch.parallel.mesh import Group
 
 __all__ = ["copy_to_tp", "reduce_from_tp", "all_gather_seq", "mean_over",
-           "all_reduce_sum", "broadcast_first"]
+           "sum_over", "all_reduce_sum", "broadcast_first"]
 
 
 def _active(group: Group | None) -> bool:
@@ -101,6 +102,18 @@ def all_gather_seq(x: torch.Tensor, dim: int,
     """The shards of ``x`` along ``dim``, concatenated in rank order; the
     gradient of this rank's shard backward."""
     return _AllGatherSeq.apply(x, dim, group) if _active(group) else x
+
+
+def sum_over(group: Group | None,
+             tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The sum of each tensor over ``group`` through one all-reduce of a
+    flat buffer, as ``lax.psum`` (the tensors themselves without one)."""
+    if not tensors or not _active(group):
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group.group)
+    return [part.view(t.shape) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def mean_over(group: Group | None, tensors: list[torch.Tensor],

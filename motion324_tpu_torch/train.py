@@ -19,7 +19,10 @@ its ``batch_size_per_device x grad_accum_steps`` share with the seed
 replica train on the share of its ``mp`` rank 0 (the Trainer broadcasts
 it). ``training.parallel_mode=shard_map``
 (the default) is data parallel; ``gspmd`` splits the model's heads over
-``mp`` (tensor parallel) and the batch over ``dp``.
+``mp`` (tensor parallel) and the batch over ``dp``; ``pp`` splits the
+alternating stack's pairs into ``mp`` pipeline stages (GPipe over
+``training.pp_microbatches``, ``grad_accum_steps=1``) and the batch over
+``dp``.
 """
 
 from __future__ import annotations

@@ -18,6 +18,15 @@ of a ``(dp, mp)`` mesh.
   rank's shards (:mod:`motion324_tpu_torch.parallel.tp`); the global norm
   adds the squares of the sharded gradients over ``mp`` to those of the
   replicated ones, taken once, so every rank takes the same decision.
+- Pipeline parallelism (``pp``, ``_build_pp_step`` of the JAX package): the
+  model holds its stage of the alternating stack over ``mesh.mp``
+  (:mod:`motion324_tpu_torch.parallel.pp`), ``pp_microbatches`` split the
+  batch and ``grad_accum_steps`` must be 1. The loss is counted on the last
+  stage only; the gradients outside the stack are summed over the stages
+  (each path contributed on one), the stack's stay on their stage; the
+  loss is summed over the stages, then DP's mean runs over ``dp``. The
+  global norm adds the stack's squares over the stages to the rest's,
+  taken once.
 - Hygiene: ``nan_to_num(0, +-1e-6)`` on every gradient.
 - The pre-clip global norm decides the step: it is skipped when the loss is
   not finite or the norm exceeds ``allowed_gradnorm_factor * grad_clip_norm``.
@@ -30,7 +39,6 @@ of a ``(dp, mp)`` mesh.
 
 Unlike the JAX step, which selects the new state on the device, this one
 reads the skip decision on the host (one synchronisation per step).
-Pipeline parallelism (``parallel_mode=pp``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,10 +49,11 @@ import torch
 from torch import nn
 
 from motion324_tpu_torch.config import TrainConfig
-from motion324_tpu_torch.parallel.collectives import all_reduce_sum, mean_over
+from motion324_tpu_torch.parallel.collectives import (all_reduce_sum,
+                                                      mean_over, sum_over)
 from motion324_tpu_torch.parallel.distributed import is_initialized
 from motion324_tpu_torch.parallel.mesh import Group, Mesh
-from motion324_tpu_torch.parallel.tp import tp_rule
+from motion324_tpu_torch.parallel.pp import splits_over_mp
 from motion324_tpu_torch.training.loss import coord_mse_loss
 from motion324_tpu_torch.training.optimizer import create_optimizer, lr_at
 from motion324_tpu_torch.utils.logging import log
@@ -69,16 +78,14 @@ class TrainState:
 
 
 def check_parallel(cfg: TrainConfig, world: int | None = None) -> None:
-    """Raise for what the port does not train: pipeline parallelism (not
-    ported yet), an unknown mode, and a mesh (``mesh.dp`` x ``mesh.mp``)
+    """Raise for what the port does not train: an unknown mode, pipeline
+    parallelism with accumulation, and a mesh (``mesh.dp`` x ``mesh.mp``)
     that the world's ``world`` processes (default: the process group's
     size, 1 without one) cannot hold."""
-    if cfg.parallel_mode == "pp":
-        raise NotImplementedError(
-            "training.parallel_mode='pp' is not ported yet (ROADMAP Queue 1 "
-            "item 11); use 'shard_map' (data parallel) or 'gspmd' (tensor "
-            "and data parallel)")
-    if cfg.parallel_mode not in ("shard_map", "gspmd"):
+    if cfg.parallel_mode == "pp" and cfg.grad_accum_steps != 1:
+        raise ValueError("pp mode expresses accumulation via pp_microbatches;"
+                         " set grad_accum_steps=1")
+    if cfg.parallel_mode not in ("shard_map", "gspmd", "pp"):
         raise ValueError(f"training.parallel_mode={cfg.parallel_mode!r} is not "
                          "one of 'shard_map', 'gspmd', 'pp'")
     if world is None:
@@ -106,9 +113,11 @@ def create_train_state(model: nn.Module, cfg: TrainConfig,
     under tensor parallelism the model must be built with ``mesh.mp``."""
     mesh = mesh or Mesh(Group(), Group())
     check_parallel(cfg, mesh.dp.size * mesh.mp.size)
-    if mesh.mp.size > 1 and getattr(model, "tp", None) != mesh.mp:
-        raise ValueError("tensor parallelism needs the model built with "
-                         "tp=mesh.mp")
+    if mesh.mp.size > 1:
+        kind = "pp" if cfg.parallel_mode == "pp" else "tp"
+        if getattr(model, kind, None) != mesh.mp:
+            raise ValueError(f"parallel_mode {cfg.parallel_mode!r} over mp "
+                             f"needs the model built with {kind}=mesh.mp")
     model.remat = cfg.remat
     if cfg.remat and cfg.remat_policy:
         log(f"training.remat_policy={cfg.remat_policy!r} is a TPU memory "
@@ -122,14 +131,26 @@ def _params(state: TrainState) -> list[torch.Tensor]:
     return [p for g in state.optimizer.param_groups for p in g["params"]]
 
 
-def _global_norm(state: TrainState, params, grads) -> torch.Tensor:
-    """The norm of the whole model's gradient: under tensor parallelism the
-    squares of the sharded gradients summed over ``mp``, plus those of the
-    replicated ones, once."""
-    tp = state.mesh.mp
+def _split_over_mp(state: TrainState, params) -> list[bool]:
+    """Whether each parameter differs across ``mp``: a tensor-parallel
+    shard, or a pipeline stage's pair."""
     names = {id(p): n for n, p in state.model.named_parameters()}
-    sharded = [tp.size > 1 and tp_rule(names[id(p)]) is not None
-               for p in params]
+    return [splits_over_mp(state.model, names[id(p)]) for p in params]
+
+
+def _loss_weight(pp: Group | None) -> float:
+    """The weight of this rank's loss: a pipeline counts it on its last
+    stage only, so that each replicated path's gradient appears on one
+    stage before the sum over the stages."""
+    return 1.0 if pp is None or pp.rank == pp.size - 1 else 0.0
+
+
+def _global_norm(state: TrainState, params, grads) -> torch.Tensor:
+    """The norm of the whole model's gradient: the squares of the
+    gradients that differ across ``mp`` (tensor-parallel shards, pipeline
+    stages) summed over it, plus those of the replicated ones, once."""
+    tp = state.mesh.mp
+    sharded = _split_over_mp(state, params)
     sq = [g.float().pow(2).sum() for g in grads]
     zero = torch.zeros((), device=grads[0].device)
     part = torch.stack([x for x, s in zip(sq, sharded) if s] or [zero]).sum()
@@ -149,6 +170,8 @@ def train_step(state: TrainState, micro_batches, cfg: TrainConfig,
     model = state.model
     params = _params(state)
     dp = state.mesh.dp
+    pp = state.mesh.mp if getattr(model, "pp", None) is not None else None
+    mask = _loss_weight(pp)
     if generator is None:
         device = params[0].device
         generator = torch.Generator(device=device).manual_seed(
@@ -159,6 +182,7 @@ def train_step(state: TrainState, micro_batches, cfg: TrainConfig,
     for mb in micro_batches:
         pred = model(mb, train=True, generator=generator)
         l, m = coord_mse_loss(pred, mb["point_clouds"], cfg.coord_mse_loss_weight)
+        l, m = l * mask, {k: v * mask for k, v in m.items()}
         g = torch.autograd.grad(l, params, allow_unused=True)
         g = [torch.zeros_like(p) if x is None else x for x, p in zip(g, params)]
         if accum > 1:
@@ -171,6 +195,13 @@ def train_step(state: TrainState, micro_batches, cfg: TrainConfig,
     if accum > 1:
         grads = [g.to(p.dtype) / accum for g, p in zip(grads, params)]
         loss, xyz = loss / accum, xyz / accum
+    if pp is not None:
+        # the stack's gradients stay on their stage; the rest, and the
+        # loss, summed over the stages
+        stage = _split_over_mp(state, params)
+        shared = sum_over(pp, [g for g, s in zip(grads, stage) if not s])
+        grads = [g if s else shared.pop(0) for g, s in zip(grads, stage)]
+        loss, xyz = sum_over(pp, [loss, xyz])
     grads = mean_over(dp, grads,
                       torch.bfloat16 if cfg.bf16_grad_allreduce else None)
     loss, xyz = mean_over(dp, [loss, xyz])

@@ -7,10 +7,12 @@ while the current step runs.
 On a ``(dp, mp)`` mesh (one process per card under torchrun) each rank's
 iterator yields that rank's share of the global batch; under tensor
 parallelism (``parallel_mode=gspmd``) the model is built sharded from the
-whole seeded state, and the ranks of one replica train on the batch of its
-``mp`` rank 0, broadcast to the others (a loader's worker threads draw in
-no fixed order, so equal seeds do not give equal batches). Rank 0 alone
-writes the metrics file and the (whole) checkpoints.
+whole seeded state, under pipeline parallelism (``pp``) each ``mp`` rank
+holds its stage's pairs of it (``training.pp_microbatches`` microbatches),
+and the ranks of one replica train on the batch of its ``mp`` rank 0,
+broadcast to the others (a loader's worker threads draw in no fixed
+order, so equal seeds do not give equal batches). Rank 0 alone writes the
+metrics file and the (whole) checkpoints.
 """
 
 from __future__ import annotations
@@ -55,8 +57,12 @@ class Trainer:
         self.data_iter = data_iter
         self.mesh = mesh or make_mesh(cfg.mesh_dp, cfg.mesh_mp)
         if model is None:
-            tp = self.mesh.mp if self.mesh.mp.size > 1 else None
-            model = MotionLatentModel(model_cfg, seed=cfg.seed, tp=tp)
+            split = self.mesh.mp if self.mesh.mp.size > 1 else None
+            if cfg.parallel_mode == "pp":
+                model = MotionLatentModel(model_cfg, seed=cfg.seed, pp=split,
+                                          pp_microbatches=cfg.pp_microbatches)
+            else:
+                model = MotionLatentModel(model_cfg, seed=cfg.seed, tp=split)
         self.state: TrainState = create_train_state(model.to(self.device), cfg,
                                                     self.mesh)
         self.writer = self.mesh.dp.rank == 0 and self.mesh.mp.rank == 0

@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from motion324_tpu_torch.parallel.tp import shard_state_dict
+from motion324_tpu_torch.parallel.pp import model_part
 
 __all__ = ["params_from_jax", "load_reference_state_dict",
            "shape_params_from_jax", "dinov2_hf_state_dict",
@@ -149,7 +149,8 @@ _DROPPED = ("pos_embed", "image_encoder.model.mask_token")
 
 def load_reference_state_dict(model: torch.nn.Module, sd) -> None:
     """Load a reference checkpoint into ``model`` (strict); a
-    tensor-parallel model (``model.tp``) takes its shard.
+    tensor-parallel model (``model.tp``) takes its shard, a pipeline stage
+    (``model.pp``) its pairs.
 
     ``sd`` is a path to a ``.pt`` file, or a state dict of tensors or numpy
     arrays; a ``model`` entry and ``module.`` prefixes are unwrapped.
@@ -163,10 +164,7 @@ def load_reference_state_dict(model: torch.nn.Module, sd) -> None:
         if k in _DROPPED:
             continue
         clean[k] = v if isinstance(v, torch.Tensor) else _t(v)
-    tp = getattr(model, "tp", None)
-    if tp is not None:
-        clean = shard_state_dict(clean, tp.rank, tp.size)
-    model.load_state_dict(clean)
+    model.load_state_dict(model_part(model, clean))
 
 
 # --------------------------------------------------------------------------- #

@@ -907,3 +907,46 @@ def test_cuda_world_one_nccl_dp_step_is_the_one_process_step(cuda, tmp_path):
     assert m_alone == m_grouped and m_alone["skipped"] == 0.0
     for k, v in alone.items():
         assert torch.equal(v, grouped[k]), k
+
+
+# K8 at the evaluation's render site (render_video.render_animated_mesh):
+# every frame's findices bit for bit against the plain version on the same
+# clip positions, one launch per frame, and the frames within 1e-5 of the
+# render on the CPU (the same shading in f32 on another device).
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["texture", "vertex_colors", "shaded"])
+def test_cuda_render_video_runs_k8_bit_for_bit(cuda, mode, monkeypatch):
+    import os
+
+    import numpy as np
+
+    from motion324_tpu_torch.evaluation import render_video as rv
+    from motion324_tpu_torch.io.glb import load_glb
+    blob = load_glb(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "synthetic", "blob.glb"))
+    frames = np.stack([blob["vertices"] * (1 + 0.1 * np.sin(i + np.arange(3)))
+                       for i in range(4)]).astype(np.float32)
+    r = np.random.RandomState(0)
+    kw = {"texture": dict(uv=blob["uv"], texture=r.rand(32, 32, 3).astype(np.float32)),
+          "vertex_colors": dict(vertex_colors=blob["vertex_colors"]),
+          "shaded": {}}[mode]
+    seen = []
+    real = rv.rasterize
+
+    def spy(pos, faces, w, h):
+        out = real(pos, faces, w, h)
+        seen.append((pos, faces, out[0]))
+        return out
+    monkeypatch.setattr(rv, "rasterize", spy)
+    before = rasterize.launches
+    got = rv.render_animated_mesh(frames, blob["faces"], resolution=256,
+                                  device="cuda", **kw)
+    assert rasterize.launches == before + len(frames)
+    for pos, faces, find in seen:
+        coeffs, bbox = bin_faces(pos, faces, 256, 256)
+        assert torch.equal(find, raster_reference(coeffs, bbox, 256, 256)
+                           .reshape(256, 256))
+    seen.clear()
+    want = rv.render_animated_mesh(frames, blob["faces"], resolution=256,
+                                   device="cpu", **kw)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -1,5 +1,9 @@
 """The port stands alone: it imports neither JAX, flax nor the JAX package,
-and its entry points run on CUDA unless the caller asks for the CPU."""
+and its entry points run on CUDA unless the caller asks for the CPU.
+
+Each import check runs in a fresh interpreter forked from a server that
+holds only torch and numpy (tests/isolation_probe.py), so that a case pays
+for its own module's imports and not for a whole interpreter's start."""
 
 import os
 import re
@@ -11,6 +15,7 @@ import pytest
 import torch
 
 import chip_smoke
+import isolation_probe
 from motion324_tpu_torch import resolve_device
 from motion324_tpu_torch import cli
 from motion324_tpu_torch.config import ModelConfig
@@ -28,20 +33,28 @@ _JAX_PKG = re.compile(r"^\s*(from|import)\s+motion324_tpu(?!_torch)\b", re.M)
 _JAX = re.compile(r"^\s*(from|import)\s+(jax|flax|jaxlib)\b", re.M)
 
 
+JAX_NAMES = ("jax", "flax", "jaxlib", "motion324_tpu")
+
+
+def _check(modules, forbidden, checks=()):
+    """Import ``modules`` in a fresh interpreter (forked from a server that
+    holds only torch and numpy): nothing of ``forbidden`` loaded, nothing of
+    ``checks`` built or started, and nothing of the port loaded before."""
+    res = isolation_probe.probe(modules, forbidden, checks)
+    assert "error" not in res, res["error"]
+    assert res["early"] == [], res["early"]
+    assert res["bad"] == [] and res["built"] == [], res
+
+
+def _port_modules() -> list[str]:
+    import pkgutil
+
+    import motion324_tpu_torch as p
+    return [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
+
+
 def test_importing_every_module_loads_no_jax():
-    code = (
-        "import pkgutil, sys, motion324_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    __import__(m.name)\n"
-        "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'jaxlib', 'motion324_tpu'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stdout + r.stderr
+    _check(_port_modules() + ["chip_smoke"], JAX_NAMES)
 
 
 TRAINING_MODULES = [
@@ -57,15 +70,7 @@ TRAINING_MODULES = [
 def test_training_modules_load_neither_jax_nor_pil_nor_yaml(module):
     """Each training module alone: no JAX, and PIL and PyYAML, which the
     card's machine lacks, stay unloaded until a function needs them."""
-    code = (f"import sys, {module}\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'yaml'))\n"
-            "print(bad)\n"
-            "sys.exit(1 if bad else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stdout + r.stderr
+    _check([module], JAX_NAMES + ("PIL", "yaml"))
 
 
 SHAPE_MODULES = [
@@ -83,16 +88,7 @@ def test_shape_modules_load_neither_jax_nor_cv2_nor_pil(module):
     """Each shape-generation module alone: no JAX, and cv2 and PIL, which
     the card's machine lacks, stay unloaded until a function needs them;
     importing builds nothing."""
-    code = (f"import sys, {module}\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'cv2'))\n"
-            "from motion324_tpu_torch import native\n"
-            "print(bad)\n"
-            "sys.exit(1 if bad or native._lib is not None else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stdout + r.stderr
+    _check([module], JAX_NAMES + ("PIL", "cv2"), ("native",))
 
 
 TEXTURE_MODULES = [
@@ -111,18 +107,7 @@ def test_texture_modules_load_neither_jax_nor_cv2_nor_pil(module):
     """Each texture-generation module alone: no JAX, and neither cv2 nor
     PIL (the card's machine has neither: the port's image ops and hole
     fill replace cv2); importing builds nothing."""
-    code = (f"import sys, {module}\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'cv2'))\n"
-            "from motion324_tpu_torch import native\n"
-            "from motion324_tpu_torch.ops import _build\n"
-            "print(bad)\n"
-            "sys.exit(1 if bad or native._lib is not None or _build._libs "
-            "else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stdout + r.stderr
+    _check([module], JAX_NAMES + ("PIL", "cv2"), ("native", "kernels"))
 
 
 LEGACY_BATCH_MODULES = [
@@ -138,16 +123,7 @@ def test_legacy_and_batch_modules_load_no_jax_cv2_pil_yaml(module):
     """Each module of the legacy-route, segmentation and batch slice alone:
     no JAX, and cv2, PIL and PyYAML, which the card's machine lacks, stay
     unloaded until a function needs them; importing builds nothing."""
-    code = (f"import sys, {module}\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'cv2', 'yaml'))\n"
-            "from motion324_tpu_torch.ops import _build\n"
-            "print(bad)\n"
-            "sys.exit(1 if bad or _build._libs else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stdout + r.stderr
+    _check([module], JAX_NAMES + ("PIL", "cv2", "yaml"), ("kernels",))
 
 
 VIDEO_ONLY_MODULES = [
@@ -164,25 +140,14 @@ def test_export_and_video_only_modules_load_no_jax_pil_cv2_yaml(module):
     and PIL, cv2 and PyYAML, which the card's machine lacks, stay unloaded
     (the GLB's texture is a PNG of the port's own codec); importing builds
     nothing."""
-    code = (f"import sys, {module}\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'cv2', 'yaml'))\n"
-            "from motion324_tpu_torch import native\n"
-            "from motion324_tpu_torch.ops import _build\n"
-            "print(bad)\n"
-            "sys.exit(1 if bad or native._lib is not None or _build._libs "
-            "else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stdout + r.stderr
+    _check([module], JAX_NAMES + ("PIL", "cv2", "yaml"), ("native", "kernels"))
 
 
 PARALLEL_MODULES = [
     "motion324_tpu_torch.parallel", "motion324_tpu_torch.parallel.distributed",
     "motion324_tpu_torch.parallel.mesh",
     "motion324_tpu_torch.parallel.collectives",
-    "motion324_tpu_torch.parallel.tp"]
+    "motion324_tpu_torch.parallel.tp", "motion324_tpu_torch.parallel.pp"]
 
 
 @pytest.mark.parametrize("module", PARALLEL_MODULES)
@@ -190,18 +155,33 @@ def test_parallel_modules_load_no_jax_pil_cv2_yaml(module):
     """Each module of the distributed layer alone: no JAX, and PIL, cv2
     and PyYAML, which the card's machine lacks, stay unloaded; importing
     builds nothing and starts no process group."""
-    code = (f"import sys, {module}\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'jaxlib', 'motion324_tpu', 'PIL', 'cv2', 'yaml'))\n"
-            "import torch.distributed as dist\n"
-            "from motion324_tpu_torch.ops import _build\n"
-            "print(bad)\n"
-            "sys.exit(1 if bad or _build._libs or dist.is_initialized() "
-            "else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stdout + r.stderr
+    _check([module], JAX_NAMES + ("PIL", "cv2", "yaml"),
+           ("kernels", "process_group"))
+
+
+EVALUATION_MODULES = [
+    "motion324_tpu_torch.evaluation", "motion324_tpu_torch.evaluation.geometry",
+    "motion324_tpu_torch.evaluation.video_metrics",
+    "motion324_tpu_torch.evaluation.i3d", "motion324_tpu_torch.evaluation.clip_sim",
+    "motion324_tpu_torch.evaluation.render_video", "motion324_tpu_torch.evaluate",
+    "motion324_tpu_torch.golden_eval"]
+
+
+@pytest.mark.parametrize("module", EVALUATION_MODULES)
+def test_evaluation_modules_load_no_jax_pil_cv2_yaml(module):
+    """Each module of the evaluation stack alone: no JAX, and PIL, cv2 and
+    PyYAML, which the card's machine lacks, stay unloaded (the protocol's
+    resize is the port's INTER_AREA); importing builds nothing."""
+    _check([module], JAX_NAMES + ("PIL", "cv2", "yaml"), ("native", "kernels"))
+
+
+def test_a_probe_sees_what_a_module_loads():
+    """The probe itself: a child starts without the port, and reports what
+    an import loads."""
+    res = isolation_probe.probe(["motion324_tpu_torch.config", "yaml"],
+                                ("yaml", "motion324_tpu_torch"))
+    assert res["early"] == [] and "yaml" in res["bad"]
+    assert "motion324_tpu_torch.config" in res["bad"]
 
 
 def test_batch_cli_raises_without_cuda(no_cuda, tmp_path):

@@ -1,7 +1,8 @@
 """Units of the port's parallel layer, in one process: the tensor-parallel
 rules and state-dict sharding against the JAX package's ``_spec_for``, the
-mesh's errors, the per-process seed, start-up without a launcher, and the
-modes that are not ported (pipeline parallelism)."""
+mesh's errors, the per-process seed, start-up without a launcher, the
+pipeline stages' split and gather of a state dict, and pipeline
+parallelism's errors against the JAX package's messages."""
 
 import socket
 
@@ -165,7 +166,8 @@ def test_init_distributed_from_the_launcher_env(no_launcher, monkeypatch):
     (["training.parallel_mode=gspmd", "mesh.dp=2", "mesh.mp=2"], ValueError,
      "world size of 4"),
     (["mesh.mp=2"], ValueError, "'shard_map' is data parallel only"),
-    (["training.parallel_mode=pp"], NotImplementedError, "Queue 1 item 11"),
+    (["training.parallel_mode=pp", "mesh.mp=2", "training.grad_accum_steps=1"],
+     None, None),
     (["training.parallel_mode=fsdp"], ValueError, "not one of")])
 def test_check_parallel_at_a_world_of_two(over, error, match):
     cfg = load_train_config(YAML, over)
@@ -178,22 +180,96 @@ def test_check_parallel_at_a_world_of_two(over, error, match):
 
 def test_pipeline_modes(no_launcher):
     cfg = ModelConfig(**dict(TP_SMALL, frames=3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        MotionPipeline(cfg, device="cpu", parallel="pp")
     with pytest.raises(ValueError, match="parallel must be"):
         MotionPipeline(cfg, device="cpu", parallel="dp")
     with pytest.raises(ValueError, match=r"window \(3\) divisible by the mp "
                                          r"axis \(2\)"):
         MotionPipeline(cfg, window=3, device="cpu", parallel="sp",
                        mesh=Mesh(Group(), Group(None, 0, 2)))
-    # one process: "tp" and "sp" run the whole model (mp=1)
+    # one process: "tp", "sp" and "pp" run the whole model (mp=1)
     r = np.random.RandomState(0)
     inputs = {k: r.rand(1, 8, 3).astype(np.float32) for k in (
         "ref_shape_pcd", "ref_shape_normals", "ref_shape_rgbs", "ref_pcd",
         "ref_normal", "ref_rgb")}
     video = r.rand(4, 28, 28, 3).astype(np.float32)
     want = MotionPipeline(cfg, window=3, device="cpu").predict(inputs, video)
-    for par in ("tp", "sp"):
+    for par in ("tp", "sp", "pp"):
         got = MotionPipeline(cfg, window=3, device="cpu",
                              parallel=par).predict(inputs, video)
         np.testing.assert_array_equal(got, want)
+
+
+PP_SMALL = dict(TP_SMALL, n_alternating_layers=8)   # 4 pairs
+
+
+def _jax_error(fn) -> str:
+    with pytest.raises(ValueError) as e:
+        fn()
+    return str(e.value)
+
+
+def _jax_accum_error():
+    from motion324_tpu.config import load_config
+    from motion324_tpu.parallel.mesh import make_mesh as jax_mesh
+    from motion324_tpu.training import optimizer as jax_opt
+    from motion324_tpu.training.train_step import build_train_step
+    cfg = load_config(YAML, ["training.grad_accum_steps=2"])
+    tx, _ = jax_opt.create_optimizer(cfg)
+    build_train_step(JaxModel(JaxConfig(**TP_SMALL)), tx, cfg,
+                     jax_mesh(dp=1, mp=1, devices=jax.devices()[:1]),
+                     mode="pp")
+
+
+def _jax_model_error(pp_size: int, micro: int, b: int):
+    model = JaxModel(JaxConfig(**PP_SMALL, pp_axis="mp", pp_size=pp_size,
+                               pp_microbatches=micro))
+    jax.eval_shape(model.init, jax.random.PRNGKey(0), _batch(0, b=b))
+
+
+def _port_model_error(pp_size: int, micro: int, b: int):
+    model = MotionLatentModel(ModelConfig(**PP_SMALL), seed=0,
+                              pp=Group(None, 0, pp_size), pp_microbatches=micro)
+    with torch.no_grad():
+        model({k: torch.from_numpy(v) for k, v in _batch(0, b=b).items()})
+
+
+@pytest.mark.parametrize("case", ["grad_accum_steps", "pairs_per_stage",
+                                  "batch_per_microbatch"])
+def test_pp_errors_match_the_jax_messages(case):
+    """Pipeline parallelism's three errors, each with the JAX package's
+    message: accumulation through ``grad_accum_steps`` (``_build_pp_step``),
+    pairs that do not divide into ``pp_size`` stages (``setup``) and a batch
+    that does not divide into ``pp_microbatches`` (``encode_video``)."""
+    if case == "grad_accum_steps":
+        want = _jax_error(_jax_accum_error)
+        cfg = load_train_config(YAML, ["training.parallel_mode=pp",
+                                       "training.grad_accum_steps=2"])
+        got = _jax_error(lambda: check_parallel(cfg, world=1))
+    else:
+        args = (3, 1, 2) if case == "pairs_per_stage" else (2, 2, 3)
+        want = _jax_error(lambda: _jax_model_error(*args))
+        got = _jax_error(lambda: _port_model_error(*args))
+    assert got == want
+
+
+def test_pp_stages_split_and_gather_back(whole):
+    """A whole state dict splits by key into the stages' pairs, renumbered
+    from 0, and the whole model's names come back in its order."""
+    from motion324_tpu_torch.parallel.pp import (is_stack_path,
+                                                 split_state_dict, whole_name,
+                                                 whole_names)
+    sd = MotionLatentModel(ModelConfig(**PP_SMALL), seed=0).state_dict()
+    parts = [split_state_dict(sd, r, 2, 4) for r in range(2)]
+    for r, part in enumerate(parts):
+        assert sorted(part) == sorted(MotionLatentModel(
+            ModelConfig(**PP_SMALL), seed=None, pp=Group(None, r, 2)
+        ).state_dict())
+        for k, v in part.items():
+            assert torch.equal(v, sd[whole_name(k, r, 2)]), k
+    names = list(parts[0])
+    assert whole_names(names, 2, 2) == list(sd)
+    assert sum(is_stack_path(k) for k in sd) == 2 * sum(
+        is_stack_path(k) for k in names)
+    seeded = MotionLatentModel(ModelConfig(**PP_SMALL), seed=0,
+                               pp=Group(None, 1, 2)).state_dict()
+    assert all(torch.equal(seeded[k], parts[1][k]) for k in seeded)

@@ -277,16 +277,10 @@ def test_dropout_is_drawn_from_the_generator(init):
 
 
 @pytest.mark.parametrize("over", [["training.parallel_mode=gspmd", "mesh.mp=2"],
-                                  ["training.parallel_mode=pp"],
                                   ["mesh.dp=2"]])
 def test_other_modes_name_the_roadmap_item(over):
-    """Pipeline parallelism is not ported and names its ROADMAP item; a
-    tensor- or data-parallel mesh of two ranks, without a process group of
-    that size, names the world size it needs."""
+    """A tensor- or data-parallel mesh of two ranks, without a process
+    group of that size, names the world size it needs."""
     cfg = load_train_config(YAML, over)
-    if cfg.parallel_mode == "pp":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            check_parallel(cfg)
-    else:
-        with pytest.raises(ValueError, match="needs a world size .*2"):
-            check_parallel(cfg)
+    with pytest.raises(ValueError, match="needs a world size .*2"):
+        check_parallel(cfg)

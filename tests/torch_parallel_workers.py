@@ -82,13 +82,22 @@ def _torch(batch: dict) -> dict:
 
 def _train_state(case: dict, mesh):
     from motion324_tpu_torch.models.motion_model import MotionLatentModel
-    from motion324_tpu_torch.parallel.tp import shard_state_dict
+    from motion324_tpu_torch.parallel.pp import model_part
     from motion324_tpu_torch.training.train_step import create_train_state
-    tp = mesh.mp if mesh.mp.size > 1 else None
-    model = MotionLatentModel(case["model_cfg"], seed=None, tp=tp)
-    model.load_state_dict(shard_state_dict(case["params"], mesh.mp.rank,
-                                           mesh.mp.size))
+    split = mesh.mp if mesh.mp.size > 1 else None
+    if case["cfg"].parallel_mode == "pp":
+        model = MotionLatentModel(case["model_cfg"], seed=None, pp=split,
+                                  pp_microbatches=case["cfg"].pp_microbatches)
+    else:
+        model = MotionLatentModel(case["model_cfg"], seed=None, tp=split)
+    model.load_state_dict(model_part(model, case["params"]))
     return create_train_state(model, case["cfg"], mesh)
+
+
+def _whole(state) -> dict:
+    """The whole model's state dict from this rank's (a collective)."""
+    from motion324_tpu_torch.parallel.pp import model_whole
+    return model_whole(state.model, state.model.state_dict())
 
 
 def _local(micros: list, mesh) -> list[dict]:
@@ -104,10 +113,10 @@ def _local(micros: list, mesh) -> list[dict]:
 def _replicated_bits_equal(state, mesh) -> bool:
     """Whether every replicated parameter holds the same bits on every
     rank of ``mp``."""
-    from motion324_tpu_torch.parallel.tp import tp_rule
+    from motion324_tpu_torch.parallel.pp import splits_over_mp
     same = True
     for k, v in state.model.state_dict().items():
-        if tp_rule(k) is not None:
+        if splits_over_mp(state.model, k):
             continue
         parts = [torch.empty_like(v) for _ in range(mesh.mp.size)]
         dist.all_gather(parts, v.contiguous(), group=mesh.mp.group)
@@ -118,7 +127,7 @@ def _replicated_bits_equal(state, mesh) -> bool:
 def train_case(rank: int, case: dict) -> dict:
     """One step of ``train_step`` on a ``case["mesh"]`` = (dp, mp) mesh."""
     from motion324_tpu_torch.parallel.mesh import make_mesh
-    from motion324_tpu_torch.parallel.tp import gather_over
+    from motion324_tpu_torch.training.checkpoints import save_checkpoint
     from motion324_tpu_torch.training.train_step import train_step
     mesh = make_mesh(*case["mesh"])
     state = _train_state(case, mesh)
@@ -128,18 +137,20 @@ def train_case(rank: int, case: dict) -> dict:
         micros[0]["rgb_video"][:] = float("nan")
     metrics = train_step(state, micros, case["cfg"])
     after = state.model.state_dict()
-    return {"metrics": metrics, "step": state.step,
-            "update_step": state.update_step,
-            "unchanged": all(torch.equal(before[k], v) for k, v in after.items()),
-            "replicated_equal": _replicated_bits_equal(state, mesh),
-            "params": gather_over(after, mesh.mp)}
+    out = {"metrics": metrics, "step": state.step,
+           "update_step": state.update_step,
+           "unchanged": all(torch.equal(before[k], v) for k, v in after.items()),
+           "replicated_equal": _replicated_bits_equal(state, mesh),
+           "params": _whole(state)}
+    if case.get("save"):
+        out["saved"] = save_checkpoint(case["save"], state)
+    return out
 
 
 def checkpoint_case(rank: int, case: dict) -> dict:
     """Resume the one-process checkpoint ``case["resume"]`` at mp=2, write
     it back at once (``again``), take one step and write that (``after``)."""
     from motion324_tpu_torch.parallel.mesh import make_mesh
-    from motion324_tpu_torch.parallel.tp import gather_over
     from motion324_tpu_torch.training.checkpoints import (auto_resume,
                                                           save_checkpoint)
     from motion324_tpu_torch.training.train_step import train_step
@@ -150,8 +161,7 @@ def checkpoint_case(rank: int, case: dict) -> dict:
     metrics = train_step(state, _local(case["micros"], mesh), case["cfg"])
     after = save_checkpoint(case["after"], state)
     return {"resumed": found, "again": again, "after": after,
-            "metrics": metrics,
-            "params": gather_over(state.model.state_dict(), mesh.mp)}
+            "metrics": metrics, "params": _whole(state)}
 
 
 def trainer_case(rank: int, case: dict) -> dict:
@@ -160,7 +170,6 @@ def trainer_case(rank: int, case: dict) -> dict:
     position-dropout mask of each forward (the zeros of the video tokens
     entering the first layer norm)."""
     from motion324_tpu_torch.parallel.mesh import make_mesh
-    from motion324_tpu_torch.parallel.tp import gather_over
     from motion324_tpu_torch.training.trainer import Trainer
     mesh = make_mesh(*case["mesh"])
     trainer = Trainer(case["cfg"], case["model_cfg"], case["batches"][rank],
@@ -172,7 +181,7 @@ def trainer_case(rank: int, case: dict) -> dict:
     state = trainer.train(case["steps"])
     return {"masks": masks, "step": state.step,
             "replicated_equal": _replicated_bits_equal(state, mesh),
-            "params": gather_over(state.model.state_dict(), mesh.mp)}
+            "params": _whole(state)}
 
 
 # --------------------------------------------------------------------- #
