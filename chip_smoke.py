@@ -102,6 +102,19 @@ Phases, each of which raises on failure (exit code non-zero):
    333 x 97 and 1 100 x 3 bit for bit; a dropped face chunk and a reversed
    tie-break caught.
 
+16. texture extras (after the video-only path): Img2ImgControlPipeline
+   (SD UNet + depth ControlNet + IP-Adapter-plus resampler, context 768, a
+   512^2 control map and 257 image tokens), DelightDiffusion (the 8-channel
+   IP2P UNet, 3-way CFG, a 518^2 image resized in and out), Upscaler (one
+   128^2 view to 512^2), TextToImagePipeline (512^2) and
+   HunyuanDiTImagePipeline (1 024^2, CFG + PAG), at release width in bf16
+   with seeded random weights, 2 steps each: the exact launches by call
+   site (K1, K6, K2 at the UNets' levels, K1 at the upscaler's 128^2 level
+   and the text DiT's joint attention; none for HunyuanDiT, whose head dim
+   is 88), seconds per pipeline; the image, the denoiser's prediction and
+   the first K1 site against the plain route, and a K1 with its logit scale
+   10% low caught; HunyuanDiT in bf16 against f32.
+
 14. distributed (last): NCCL at world size 1 in this process (a 16-frame
    DP step, plain and with the bf16 wire, and parallel="sp" / "tp" / "pp"
    predict bit for bit against no group); then two ranks on cuda:0 over
@@ -334,6 +347,15 @@ def phase_kernels(torch, seed: int) -> list[dict]:
         ("flash_fwd", "unet_mv_6144", 1, 10, 6144, 6144, True),
         ("flash_fwd", "unet_mv_1536", 1, 20, 1536, 1536, True),
         ("folded_fwd", "unet_mv_384", 1, 20, 384, 384, True),
+        # the texture extras (phase_extras): the SD UNets' 64^2 / 32^2 /
+        # 16^2 levels at the delighter's batch of 3 (its 3-way CFG), the
+        # upscaler's 128^2 level (4 heads), the text DiT's joint attention
+        # over 1 024 image + 77 text tokens (CFG pair, 16 heads)
+        ("flash_fwd", "extras_unet_64", 3, 5, 4096, 4096, True),
+        ("flash_single_kv", "extras_unet_32", 3, 10, 1024, 1024, True),
+        ("folded_fwd", "extras_unet_16", 3, 20, 256, 256, True),
+        ("flash_fwd", "sr_16384", 1, 4, 16384, 16384, True),
+        ("flash_fwd", "t2i_joint", 2, 16, 1101, 1101, True),
         # the distributed phase's shapes: SP=2 (a rank's 6 of 12 frames,
         # its global queries over all the keys), TP=2 (half the heads)
         ("flash_fwd", "sp_global", 1, 12, 1944, 3888, False),
@@ -728,7 +750,8 @@ def launch_spy(fa, fo, record_raster: list | None = None):
     with 1 370 the DINOv2-giant conditioner, with 1 881 the DiT, with 8 192
     the volume query, with 4 096 / 1 024 the paint UNet's 64^2 / 32^2
     self and reference attention, with 24 576 / 6 144 / 1 536 its multiview
-    attention, any other a global layer; K2 over 257 tokens is DINOv2, over
+    attention, with 16 384 the upscaler's 128^2 level, with 1 101 the text
+    DiT's joint attention, any other a global layer; K2 over 257 tokens is DINOv2, over
     512 the ShapeVAE, over 256 the UNet's 16^2 level, over 384 its mid
     multiview attention, any other a local layer; K7 by its token count;
     K8 by its width; K9 (the legacy route, (B, H, S, 64)) by
@@ -743,7 +766,7 @@ def launch_spy(fa, fo, record_raster: list | None = None):
     flash_sites = {64: "shape_encoder", 1370: "conditioner", 1881: "dit",
                    8192: "volume_query", 4096: "unet_64", 1024: "unet_32",
                    24576: "unet_mv_24576", 6144: "unet_mv_6144",
-                   1536: "unet_mv_1536"}
+                   1536: "unet_mv_1536", 16384: "sr_16384", 1101: "t2i_joint"}
     folded_sites = {257: "dino", 512: "vae", 256: "unet_16", 384: "unet_mv_384"}
 
     def spy(real, site):
@@ -4042,6 +4065,337 @@ def phase_evaluation(torch, seed: int, keep: dict) -> tuple[list, dict]:
     return [row], {("rasterize", f"render_{EVAL_RES}"): k8}
 
 
+EXTRAS_STEPS = 2
+EXTRAS_SIZE = 512          # the control map, the delit image, text-to-image
+SR_INPUT = 128             # one low-resolution view, upscaled to 512^2
+HDIT_SIZE = 1024           # HunyuanDiT's default
+# K1 call sites of the extras by query count: the SD UNets' 64^2 level
+# (4 096 tokens), the upscaler's 128^2 level, the text DiT's joint sequence
+# (1 024 image + 77 text tokens)
+EXTRAS_K1_SITE = {"img2img": 4096, "delight": 4096, "upscaler": 16384,
+                  "text2image": 1101}
+# ||kernel route - plain route|| / ||plain route||, both routes in f32
+# (no TF32), where K1, K6 and K2 run their f32 variants and read max|d|
+# <= 2^-14 of max in the kernel phase: the first K1 site's attention
+# alone, the denoiser's prediction on seeded inputs, and the image after
+# EXTRAS_STEPS steps and the decode. In bf16 the two routes round P and O
+# at other points through every layer, which reads 0.8e-2 to 1.7e-2 on
+# the denoiser, as much as a K1 with its logit scale 10% low moves it
+# (1.8e-2 to 2.7e-2), so only f32 can tell a wrong kernel from rounding.
+# Each limit sits between the sound readings and those of a K1, K6 or K2
+# with its logit scale 10% low (PERF.md, Findings)
+EXTRAS_TOL = {"site": 1e-4, "model": 1e-4, "image": 1e-3}
+# HunyuanDiT has no kernel (head dim 88): its bf16 run against f32 with the
+# same weights, through 40 blocks of 1 408 with bf16 rounding at every layer
+# (7.3e-3 on the prediction, 1.1e-2 on the image at seed 0 on the H100)
+HDIT_TOL = {"model": 5e-2, "image": 5e-2}
+EXTRAS_SHAPES: dict = {}       # each pipeline's output, set from the sizes
+
+
+def extras_launches() -> dict:
+    """Launches of the extras phase's pipelines by (kernel, call site), for
+    EXTRAS_STEPS steps each. A UNet call at 64^2 (tf_depth 1): 5 K1 at 64^2, 5
+    K6 at 32^2, 5 K2 at 16^2 (the 8^2 mid level and every cross-attention
+    are plain); a ControlNet call 2 + 2 + 2; the upscaler's UNet at 128^2:
+    5 K1 at 128^2, 5 K1 at 64^2, 5 K6 at 32^2 and its mid level's K2 at
+    16^2; a text DiT call 24 K1 (8 double + 16 single blocks)."""
+    unet = {"extras_unet_64": 5, "extras_unet_32": 5, "extras_unet_16": 5}
+    per_step = {
+        "img2img": {k: 2 * (n + 2) for k, n in unet.items()},
+        "delight": dict(unet),
+        "upscaler": {"sr_16384": 10, "extras_unet_64": 10, "extras_unet_32": 10,
+                     "extras_unet_16": 2},
+        "text2image": {"t2i_joint": 24},
+        "hunyuan_dit": {},
+    }
+    kernel = {"extras_unet_64": "flash_fwd", "sr_16384": "flash_fwd",
+              "t2i_joint": "flash_fwd", "extras_unet_32": "flash_single_kv",
+              "extras_unet_16": "folded_fwd"}
+    return {name: {(kernel[s], s): EXTRAS_STEPS * n for s, n in sites.items()}
+            for name, sites in per_step.items()}
+
+
+def extras_sites(by_site: dict) -> dict:
+    """The launch spy's site names for the extras: the UNets' 64^2 / 32^2 /
+    16^2 levels share their query counts with the paint UNet's sites."""
+    rename = {"unet_64": "extras_unet_64", "unet_32": "extras_unet_32",
+              "unet_16": "extras_unet_16"}
+    return {(k, rename.get(s, s)): n for (k, s), n in by_site.items()}
+
+
+def build_extras(torch, seed: int) -> dict:
+    """The five pipelines at release width with seeded random weights drawn
+    on the card in bf16, and for each its run, its denoiser on seeded
+    inputs (``probe``), the modules whose attention route is switched
+    (``modules``) and every module with weights (``weights``)."""
+    from motion324_tpu_torch.hy3dgen.delight import DelightDiffusion
+    from motion324_tpu_torch.hy3dgen.hunyuan_dit_image import (
+        HunyuanDiTImagePipeline)
+    from motion324_tpu_torch.hy3dgen.img2img import Img2ImgControlPipeline
+    from motion324_tpu_torch.hy3dgen.super_resolution import Upscaler
+    from motion324_tpu_torch.hy3dgen.text2image import TextToImagePipeline
+
+    dev = "cuda"
+    gen = lambda k: torch.Generator(dev).manual_seed(seed * 100 + k)
+    randn = lambda k, *shape: torch.randn(shape, generator=gen(k), device=dev)
+    full = lambda n, v: torch.full((n,), v, device=dev)
+    image = synthetic_image(seed, EXTRAS_SIZE + 6)   # odd size: resized in and out
+    control = synthetic_image(seed + 1, EXTRAS_SIZE)
+    lat = EXTRAS_SIZE // 8
+    steps = EXTRAS_STEPS
+    out = {}
+
+    # ControlNet img2img with an image prompt (CLIP ViT-H patch tokens)
+    i2i = Img2ImgControlPipeline.init_random(gen(1), device=dev)
+    with torch.no_grad():        # residuals that reach the UNet
+        for m in i2i.controlnet.zero_modules():
+            m.weight.normal_(0.0, 0.02, generator=gen(2))
+    feats = randn(3, 1, 257, i2i.resampler.proj_in.in_features)
+    x_i2i = randn(4, 1, 4, lat, lat)
+    hint = torch.as_tensor(control, device=dev).permute(2, 0, 1)[None]
+    out["img2img"] = dict(
+        run=lambda: i2i(control, image_features=feats, num_steps=steps, seed=seed),
+        probe=lambda: i2i.unet(
+            x_i2i, full(1, 500.0), i2i.text_cond, control_residuals=i2i.controlnet(
+                x_i2i, full(1, 500.0), i2i.text_cond, hint),
+            ip_tokens=i2i.resample(feats), ip_scale=0.7),
+        modules=list(i2i.modules), weights=list(i2i.modules), obj=i2i)
+
+    # the IP2P delighter: 3-way CFG in one batch of 3
+    dd = DelightDiffusion.init_random(gen(5), image_size=EXTRAS_SIZE,
+                                      context_dim=768, device=dev)
+    z = randn(6, 1, 4, lat, lat)
+    out["delight"] = dict(
+        run=lambda: torch.as_tensor(dd(image, num_steps=steps, seed=seed)),
+        probe=lambda: dd.unet(
+            torch.cat([z.expand(3, -1, -1, -1),
+                       torch.cat([z, z, torch.zeros_like(z)])], 1),
+            full(3, 500.0),
+            torch.cat([dd.text, torch.zeros_like(dd.text).expand(2, -1, -1)])),
+        modules=[dd.unet], weights=[dd.unet, dd.vae], obj=dd)
+
+    # the x4 upscaler: one low-resolution view
+    sr = Upscaler.init_random(gen(7), device=dev)
+    view = synthetic_image(seed + 2, SR_INPUT)
+    x_sr = randn(8, 1, 7, SR_INPUT, SR_INPUT)
+    out["upscaler"] = dict(
+        run=lambda: sr(view, num_steps=steps, seed=seed),
+        probe=lambda: sr.unet(x_sr, full(1, 500.0), sr.text_cond,
+                              torch.full((1,), 20, device=dev)),
+        modules=[sr.unet], weights=[sr.unet, sr.vae], obj=sr)
+
+    # text-to-image: the text DiT over patchified latents
+    t2i = TextToImagePipeline.init_random(gen(9), device=dev,
+                                          image_size=EXTRAS_SIZE)
+    cfg = t2i.text.cfg
+    tokens = torch.randint(0, cfg.eos_token, (cfg.max_len,),
+                           generator=torch.Generator().manual_seed(seed)).numpy()
+    tokens[min(12, cfg.max_len - 1)] = cfg.eos_token
+    xt = randn(10, 2, t2i.tokens_per_side ** 2, t2i.lat_ch)
+    ctx = randn(11, 2, cfg.max_len, cfg.hidden)
+    out["text2image"] = dict(
+        run=lambda: t2i(tokens, num_steps=steps, seed=seed),
+        probe=lambda: t2i.dit(xt, full(2, 0.5), ctx),
+        modules=[t2i.dit], weights=list(t2i.modules), obj=t2i)
+
+    # HunyuanDiT, CFG + PAG; plain attention only
+    hd = HunyuanDiTImagePipeline.init_random(gen(12), image_size=HDIT_SIZE,
+                                             device=dev)
+    m = hd.model
+    clip = randn(13, 1, m.text_len, m.text_embedding_padding.shape[1])
+    t5 = randn(14, 1, m.text_len_t5, m.text_embedder.linear_1.in_features)
+    xh = randn(15, 2, 4, HDIT_SIZE // 8, HDIT_SIZE // 8)
+    out["hunyuan_dit"] = dict(
+        run=lambda: hd(clip, t5, num_steps=steps, enable_pag=True, seed=seed),
+        probe=lambda: hd.model(xh, full(2, 500.0),
+                               torch.cat([clip, torch.zeros_like(clip)]),
+                               torch.cat([t5, torch.zeros_like(t5)])),
+        modules=[hd.model], obj=hd)
+    return out
+
+
+def extras_faults(torch, sites: dict) -> dict:
+    """Wrong kernels to inject for one pipeline, by name: (wrapper, a map
+    from the real wrapper to a faulty one), each with its logit scale 10%
+    low and only on its own route: K1 always, K6 and K2 where the
+    pipeline's kernel run launched them (``sites``)."""
+    from motion324_tpu_torch.ops.flash_attention import single_kv_route
+    _, scale_off, _ = attention_faults(torch)["K1 logit scale 10% low"]
+
+    def on_k1(real):
+        bad = scale_off(real)
+        return lambda q, k, v, **kw: (real if single_kv_route(k.shape[2])
+                                      else bad)(q, k, v, **kw)
+    faults = {"K1": ("flash_attention", on_k1)}
+    kernels = {k for k, _ in sites}
+    if "flash_single_kv" in kernels:
+        faults["K6"] = ("flash_attention",
+                        k6_faults(torch)["K6 logit scale 10% low"])
+    if "folded_fwd" in kernels:
+        faults["K2"] = attention_faults(torch)["K2 logit scale 10% low"][:2]
+    return faults
+
+
+def extras_checks(torch, name: str, p: dict, site_qkv, sites: dict) -> list:
+    """The kernel route against the plain route for one pipeline, both in
+    f32 (its weights cast in place): the first K1 site's attention alone,
+    the denoiser's prediction and the image; then a K1, K6 or K2 with its
+    logit scale 10% low in place of the real one, each of which some check
+    must catch. Returns the problems."""
+    from motion324_tpu_torch.ops import attention
+    from motion324_tpu_torch.ops.flash_attention import flash_attention_reference
+    for m in p["weights"]:
+        m.float()
+    q, k, v = (t.float() for t in site_qkv)
+    run = torch.inference_mode()(p["run"])
+    probe = torch.inference_mode()(p["probe"])
+    t0 = time.perf_counter()
+    got = {"site": attention.flash_attention(q, k, v), "model": probe(),
+           "image": run()}
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    set_attn_backend(p["modules"], "plain")
+    try:
+        want = {"site": flash_attention_reference(q, k, v), "model": probe(),
+                "image": run()}
+    finally:
+        set_attn_backend(p["modules"], None)
+    sound = {c: rel_norm(got[c], want[c]) for c in got}
+    log(f"  {name}: f32 kernel route ({f32_s:.3f} s) vs plain route, "
+        f"||d|| / ||plain|| (max|d| / max|plain|): " + ", ".join(
+            f"{c} {sound[c]:.3e} ({rel_max(got[c], want[c]):.3e}; tol "
+            f"{EXTRAS_TOL[c]:.0e})" for c in sound))
+    problems = [f"{name}: kernel route disagrees with the plain route in f32: "
+                f"{c} {sound[c]:.3e}" for c in EXTRAS_TOL
+                if not sound[c] <= EXTRAS_TOL[c]]
+    for kernel, (attr, fault) in extras_faults(torch, sites).items():
+        real = getattr(attention, attr)
+        setattr(attention, attr, fault(real))
+        try:
+            bad = {"model": rel_norm(probe(), want["model"])}
+            if kernel == "K1":
+                bad["site"] = rel_norm(attention.flash_attention(q, k, v),
+                                       want["site"])
+                bad["image"] = rel_norm(run(), want["image"])
+        finally:
+            setattr(attention, attr, real)
+        caught = [c for c, r in bad.items() if r > EXTRAS_TOL[c]]
+        log(f"  {name}: injected fault, {kernel} logit scale 10% low: "
+            + ", ".join(f"{c} {r:.3e}" for c, r in bad.items())
+            + f"; caught by {caught or 'NO check'}")
+        if not caught:
+            problems.append(f"{name}: no check catches a {kernel} with its "
+                            f"logit scale 10% low")
+    return problems
+
+
+def phase_extras(torch, seed: int) -> dict:
+    """The texture extras and text-to-image at release width: each pipeline
+    once in bf16 on the kernel route (launches by call site, seconds to a
+    synchronise); then in f32 its first K1 site, denoiser and image against
+    the plain route, and injected K1, K6 and K2 faults; HunyuanDiT in bf16
+    against f32. Returns the launches by (kernel, site), summed over the
+    pipelines."""
+    from motion324_tpu_torch.ops import attention
+    from motion324_tpu_torch.ops import flash_attention as fa
+    from motion324_tpu_torch.ops import folded_attention as fo
+
+    t0 = time.perf_counter()
+    pipes = build_extras(torch, seed)
+    torch.cuda.synchronize()
+    count = lambda mods: sum(p.numel() for m in mods for p in m.parameters()) / 1e9
+    log(f"  built on the card in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{n} {count(p['modules']):.3f} B" for n, p in pipes.items())
+        + " bf16 parameters (denoisers)")
+    want_all = extras_launches()
+    EXTRAS_SHAPES.update(
+        img2img=(EXTRAS_SIZE, EXTRAS_SIZE, 3),
+        delight=(EXTRAS_SIZE + 6, EXTRAS_SIZE + 6, 3),
+        upscaler=(4 * SR_INPUT, 4 * SR_INPUT, 3),
+        text2image=(EXTRAS_SIZE, EXTRAS_SIZE, 3),
+        hunyuan_dit=(1, HDIT_SIZE, HDIT_SIZE, 3))
+    problems, totals = [], {}
+    for name, p in pipes.items():
+        seen = []
+        real = attention.flash_attention
+        sq = EXTRAS_K1_SITE.get(name)
+
+        def record(q, k, v, **kw):
+            if not seen and q.shape[2] == sq:
+                seen.append((q.clone(), k.clone(), v.clone()))
+            return real(q, k, v, **kw)
+
+        zero_launches(fa, fo)
+        by_site, undo = launch_spy(fa, fo)
+        attention.flash_attention = record
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        try:
+            p["image"] = torch.inference_mode()(p["run"])()
+            torch.cuda.synchronize()
+        finally:
+            attention.flash_attention = real
+            undo()
+        secs = time.perf_counter() - t1
+        sites = extras_sites(by_site)
+        img = p["image"]
+        log(f"  {name}: {secs:.3f} s for {EXTRAS_STEPS} steps and the decode "
+            f"(host clock to a synchronise), image {tuple(img.shape)}, peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+            f"launches by call site {dict(sorted(sites.items()))}")
+        if sites != want_all[name]:
+            problems.append(f"{name} launches {sites}, expected {want_all[name]}")
+        # the delighter's bicubic back to the input's size rings past [0, 1],
+        # as OpenCV's does in the JAX package
+        if not (tuple(img.shape) == EXTRAS_SHAPES[name]
+                and torch.isfinite(img).all()
+                and (name == "delight" or 0 <= img.min() <= img.max() <= 1)):
+            problems.append(f"{name}: image of shape {tuple(img.shape)}, not "
+                            f"{EXTRAS_SHAPES[name]} finite in [0, 1]")
+        for key, n in sites.items():
+            totals[key] = totals.get(key, 0) + n
+        if name == "hunyuan_dit":
+            problems += hunyuan_precision(torch, p)
+        elif not seen:
+            problems.append(f"{name}: no K1 call at {sq} queries")
+        else:
+            problems += extras_checks(torch, name, p, seen[0], sites)
+        del p["image"]
+        p.clear()
+        torch.cuda.empty_cache()
+    del pipes
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return totals
+
+
+def hunyuan_precision(torch, p: dict) -> list:
+    """HunyuanDiT in bf16 against the same weights in f32: its prediction
+    on seeded inputs and the CFG + PAG image."""
+    import copy
+    pipe = p["obj"]
+    model, vae = pipe.model, pipe.vae
+    got = {"image": p["image"], "model": torch.inference_mode()(p["probe"])()}
+    pipe.model, pipe.vae = copy.deepcopy(model).float(), copy.deepcopy(vae).float()
+    try:
+        t0 = time.perf_counter()
+        want = {"image": torch.inference_mode()(p["run"])(),
+                "model": torch.inference_mode()(p["probe"])()}
+        torch.cuda.synchronize()
+        f32_s = time.perf_counter() - t0
+    finally:
+        pipe.model, pipe.vae = model, vae
+    read = {c: rel_norm(got[c], want[c]) for c in got}
+    log(f"  hunyuan_dit: bf16 vs f32 (f32 run {f32_s:.3f} s), ||d|| / ||f32|| "
+        f"(max|d| / max|f32|): " + ", ".join(
+            f"{c} {read[c]:.3e} ({rel_max(got[c], want[c]):.3e}; tol "
+            f"{HDIT_TOL[c]:.0e})" for c in read))
+    return [f"hunyuan_dit: bf16 disagrees with f32: {c} {r:.3e}"
+            for c, r in read.items() if not r <= HDIT_TOL[c]]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4106,6 +4460,12 @@ def main(argv=None) -> int:
     header("video-only path: video_only.run, preprocess -> shape -> paint -> "
            "motion -> GLB + FBX, release width, bf16")
     phase_video_only(torch, args.seed, keep)
+    keep.clear()
+    torch.cuda.empty_cache()
+    header("texture extras and text-to-image: img2img + ControlNet + "
+           "IP-Adapter, IP2P delight, x4 upscaler, text DiT, HunyuanDiT; "
+           "release width, bf16")
+    launches.update(phase_extras(torch, args.seed))
     header("distributed: DP, TP and PP training, TP, SP and PP inference; "
            "NCCL at world size 1, two ranks on the card over gloo")
     phase_distributed(torch, args.seed, repo)

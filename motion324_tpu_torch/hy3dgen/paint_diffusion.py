@@ -25,9 +25,11 @@ import numpy as np
 import torch
 
 from motion324_tpu_torch import resolve_device
+from motion324_tpu_torch.hy3dgen.diffusion_common import (
+    euler_ancestral, f32_scalars, host_arrays, random_modules,
+    sd_modules_from_diffusers)
 from motion324_tpu_torch.hy3dgen.sd_unet import UNet2p5D
-from motion324_tpu_torch.hy3dgen.sd_vae import (SCALING_FACTOR, AutoencoderKL,
-                                                GroupNorm)
+from motion324_tpu_torch.hy3dgen.sd_vae import SCALING_FACTOR, AutoencoderKL
 from motion324_tpu_torch.hy3dgen.voxel_attention import (
     multi_resolution_mask, multi_resolution_positions)
 from motion324_tpu_torch.utils.image import resize_area
@@ -78,24 +80,6 @@ def lcm_boundary_scalings(timestep, sigma_data: float = 0.5,
     return c_skip, c_out
 
 
-def _random_fill(module: torch.nn.Module, gen: torch.Generator) -> None:
-    """Seeded weights on the module's device, in the scale of the JAX
-    package's initialisers: N(0, 1/fan_in) for Dense, Conv and Embed
-    weights, zero biases, unit norm scales."""
-    norms = {id(m.weight) for m in module.modules()
-             if isinstance(m, (GroupNorm, torch.nn.LayerNorm))}
-    with torch.no_grad():
-        for p in module.parameters():
-            if id(p) in norms:
-                p.fill_(1.0)
-            elif p.dim() == 1:
-                p.zero_()
-            else:
-                fan_in = p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
-                                    dtype=p.dtype) * fan_in ** -0.5)
-
-
 class MultiviewDiffusion:
     """The paint pipeline's view synthesizer.
 
@@ -136,12 +120,10 @@ class MultiviewDiffusion:
         device = resolve_device(kw.pop("device", None))
         gen = generator or torch.Generator(device).manual_seed(0)
         context_dim = kw.get("context_dim", 1024)
-        with torch.device("meta"):
-            unet = UNet2p5D(context_dim=context_dim, **(unet_kwargs or {}))
-            vae = AutoencoderKL(**(vae_kwargs or {}))
-        unet, vae = unet.to_empty(device=device), vae.to_empty(device=device)
-        _random_fill(unet, gen)
-        _random_fill(vae, gen)
+        unet, vae = random_modules(
+            device, gen, lambda: UNet2p5D(context_dim=context_dim,
+                                          **(unet_kwargs or {})),
+            lambda: AutoencoderKL(**(vae_kwargs or {})))
         self = cls({}, unet=unet, vae=vae, device=device, **kw)
         shape = (1, self.text_len, context_dim)
         self.text_gen = self._commit(
@@ -158,37 +140,16 @@ class MultiviewDiffusion:
         UNet2p5D state dict (diffusers layout; ``learned_text_clip_gen`` and
         ``learned_text_clip_ref`` are taken from it unless given) and its
         AutoencoderKL. The widths are read from the weights."""
-        from motion324_tpu_torch.utils.convert import flax_to_state_dict
-        from motion324_tpu_torch.utils.sd_convert import (convert_sd_unet,
-                                                          convert_sd_vae)
-        host = lambda sd: {k: (v.float().numpy() if isinstance(v, torch.Tensor)
-                               else np.asarray(v, np.float32))
-                           for k, v in sd.items()}
-        unet_sd, vae_sd = host(unet_state_dict), host(vae_state_dict)
+        unet_sd = host_arrays(unet_state_dict)
         if text_gen is None:
             text_gen = unet_sd.pop("unet.learned_text_clip_gen")[None]
         if text_ref is None:
             text_ref = unet_sd.pop("unet.learned_text_clip_ref")[None]
-        u = convert_sd_unet(unet_sd)["params"]
-        v = convert_sd_vae(vae_sd)["params"]
-        n_blocks = sum(1 for k in u if k.startswith("down_") and k.endswith("_res_0"))
-        chs = tuple(u[f"down_{i}_res_0"]["conv1"]["kernel"].shape[-1]
-                    for i in range(n_blocks))
-        layers = sum(1 for k in u if k.startswith("down_0_res_"))
-        ctx = u["down_0_tf_0"]["block_0"]["attn2"]["to_k"]["kernel"].shape[0]
-        unet = UNet2p5D(
-            in_channels=u["conv_in"]["kernel"].shape[2], block_channels=chs,
-            layers_per_block=layers, context_dim=ctx, head_dim=head_dim,
-            num_camera_embeds=u["camera_embedding"]["embedding"].shape[0])
-        vn = sum(1 for k in v if k.startswith("enc_") and k.endswith("_res_0"))
-        vae = AutoencoderKL(
-            block_channels=tuple(v[f"enc_{i}_res_0"]["conv1"]["kernel"].shape[-1]
-                                 for i in range(vn)),
-            layers_per_block=sum(1 for k in v if k.startswith("enc_0_res_")))
-        params = {"unet": flax_to_state_dict(u), "vae": flax_to_state_dict(v),
-                  "text_gen": np.asarray(text_gen, np.float32),
-                  "text_ref": np.asarray(text_ref, np.float32)}
-        return cls(params, unet=unet, vae=vae, context_dim=ctx,
+        unet, vae, params = sd_modules_from_diffusers(unet_sd, vae_state_dict,
+                                                      head_dim=head_dim)
+        params.update(text_gen=np.asarray(text_gen, np.float32),
+                      text_ref=np.asarray(text_ref, np.float32))
+        return cls(params, unet=unet, vae=vae, context_dim=unet.context_dim,
                    text_len=params["text_gen"].shape[1], **kw)
 
     # ------------------------------------------------------------------ #
@@ -218,8 +179,8 @@ class MultiviewDiffusion:
         """One Euler-Ancestral step with CFG: a ``w`` pass, then ``r``
         passes at ref_scale 1 and 0. The scalar math is f32, as under
         ``jax.jit``."""
-        f = lambda x: torch.tensor(x, dtype=torch.float32, device=noisy.device)
-        sigma, sigma_next, guidance = f(sigma), f(sigma_next), f(guidance)
+        sigma, sigma_next, guidance = f32_scalars(noisy.device, sigma,
+                                                  sigma_next, guidance)
         n_views = noisy.shape[0]
         bank = self._ref_bank(ref_lat, text_ref)
         x_in = torch.cat([noisy * (1.0 / torch.sqrt(sigma ** 2 + 1.0)),
@@ -230,21 +191,14 @@ class MultiviewDiffusion:
                                       mva_masks=mva_masks)
         eps_c, eps_u = run(1.0), run(0.0)
         eps = eps_u + guidance * (eps_c - eps_u)
-        x0 = noisy - sigma * eps
-        s_to2, s_from2 = sigma_next ** 2, sigma ** 2
-        sigma_up = torch.sqrt(torch.clamp(
-            s_to2 * (s_from2 - s_to2) / torch.clamp(s_from2, min=1e-12), min=0.0))
-        sigma_down = torch.sqrt(torch.clamp(s_to2 - sigma_up ** 2, min=0.0))
-        d = (noisy - x0) / torch.clamp(sigma, min=1e-12)
-        return x0 + d * sigma_down + noise * sigma_up
+        return euler_ancestral(noisy, eps, sigma, sigma_next, noise)
 
     @torch.inference_mode()
     def lcm_step(self, noisy, ctrl, ref_lat, text_gen, text_ref, camera_ids,
                  t: float, ac_t: float, ac_prev: float, noise, mva_masks=None):
         """One LCM (turbo) step, no CFG: a ``w`` pass and one ``r`` pass at
         ref_scale 1. Returns ``(denoised, the next step's latents)``."""
-        f = lambda x: torch.tensor(x, dtype=torch.float32, device=noisy.device)
-        tf, ac_t, ac_prev = f(t), f(ac_t), f(ac_prev)
+        tf, ac_t, ac_prev = f32_scalars(noisy.device, t, ac_t, ac_prev)
         n_views = noisy.shape[0]
         bank = self._ref_bank(ref_lat, text_ref)
         x_in = torch.cat([noisy, ctrl.float()], 1)

@@ -10,7 +10,9 @@
    maps for the six baking cameras (K8);
 4. synthesise the six views: :class:`~motion324_tpu_torch.hy3dgen.
    paint_diffusion.MultiviewDiffusion`, or without weights the weight-free
-   :func:`reprojection_texturizer`;
+   :func:`reprojection_texturizer`; with ``super_resolution`` upscale each
+   view 4x (:class:`~motion324_tpu_torch.hy3dgen.super_resolution.
+   Upscaler`, its weight-free Lanczos fallback without weights);
 5. back-project and merge the views in UV space (K8 at the texture size);
 6. fill seams by vertex colour diffusion (native C++), then the remaining
    holes by Navier-Stokes inpainting (native C++).
@@ -70,12 +72,16 @@ class PaintPipeline:
     :class:`~motion324_tpu_torch.hy3dgen.paint_diffusion.MultiviewDiffusion`;
     without one, the weight-free :func:`reprojection_texturizer`, with a
     log line saying so. ``delight=True`` removes shading from the reference
-    image first.
+    image first. ``super_resolution=True`` upscales each view 4x before
+    baking with ``upscaler`` (an :class:`~motion324_tpu_torch.hy3dgen.
+    super_resolution.Upscaler`, the weight-free one when ``None``); off by
+    default, as the reference ships it commented out.
     """
 
     def __init__(self, multiview_model: Callable | None = None,
                  resolution: int = 512, texture_size: int = 2048,
-                 delight: bool = True, device: str | torch.device | None = None):
+                 delight: bool = True, super_resolution: bool = False,
+                 upscaler=None, device: str | torch.device | None = None):
         self.device = resolve_device(device)
         if multiview_model is None:
             log("PaintPipeline: no multiview diffusion weights — using the "
@@ -85,6 +91,8 @@ class PaintPipeline:
         self.resolution = resolution
         self.texture_size = texture_size
         self.delight = delight
+        self.super_resolution = super_resolution
+        self.upscaler = upscaler
         self.last_run: dict = {}
 
     def _sync(self) -> None:
@@ -124,6 +132,14 @@ class PaintPipeline:
         lap("render")
         view_images = self.multiview_model(image, views, renders)
         lap("diffusion")
+        if self.super_resolution:
+            # back-projection samples each view by its own resolution, so
+            # no other stage changes
+            if self.upscaler is None:
+                from motion324_tpu_torch.hy3dgen.super_resolution import Upscaler
+                self.upscaler = Upscaler(params=None, device=self.device)
+            view_images = [self.upscaler(v) for v in view_images]
+            lap("super_resolution")
         texture, covered = renderer.bake(view_images, views)
         lap("bake")
 

@@ -19,7 +19,19 @@ The JAX package's ``UNet2p5D`` (the HunyuanPaint denoiser) as
   once, scaled by ``mva_scale``, restricted by a voxel mask where
   ``mva_masks`` (keyed by joint token count) holds one: a
   :class:`~motion324_tpu_torch.hy3dgen.voxel_attention.VoxelMask` goes to
-  K7, a dense boolean mask to plain PyTorch.
+  K7, a dense boolean mask to plain PyTorch;
+- IP-Adapter's decoupled cross-attention (``ip_adapter=True``): image-prompt
+  tokens get their own ``to_k_ip`` / ``to_v_ip`` projections in every text
+  cross-attention, share its query, and their output is added with
+  ``ip_scale`` before the shared ``to_out``;
+- ControlNet injection: ``control_residuals = (down_list, mid)`` adds one
+  residual to each skip connection and the mid residual after the mid
+  block.
+
+A plain SD UNet (img2img, the IP2P delighter, the x4 upscaler) is built
+with ``multiview=False`` (no reference or multiview attention) and
+``num_camera_embeds=0`` (no camera embedding), as the JAX package's flax
+init leaves those modules out there.
 
 All other attention goes through :func:`~motion324_tpu_torch.ops.attention.
 multi_head_attention` (K1, K6, K2 or plain by shape); ``attn_backend=
@@ -60,10 +72,12 @@ def _plain_mha(q, k, v):
 
 
 class _Attention(nn.Module):
-    """diffusers-style attention: q/k/v without bias, out projection with."""
+    """diffusers-style attention: q/k/v without bias, out projection with;
+    with ``ip_adapter`` also ``to_k_ip`` / ``to_v_ip`` for image-prompt
+    tokens of width ``context_dim``."""
 
     def __init__(self, dim: int, heads: int, context_dim: int | None = None,
-                 attn_backend: str | None = None):
+                 attn_backend: str | None = None, ip_adapter: bool = False):
         super().__init__()
         self.heads = heads
         self.attn_backend = attn_backend
@@ -71,9 +85,18 @@ class _Attention(nn.Module):
         self.to_q = Dense(dim, dim, bias=False)
         self.to_k = Dense(cdim, dim, bias=False)
         self.to_v = Dense(cdim, dim, bias=False)
+        if ip_adapter:
+            self.to_k_ip = Dense(cdim, dim, bias=False)
+            self.to_v_ip = Dense(cdim, dim, bias=False)
         self.to_out = Dense(dim, dim)
 
-    def forward(self, x, context=None, mask=None):
+    def _mha(self, q, k, v):
+        if self.attn_backend == "plain":
+            return _plain_mha(q, k, v)
+        return multi_head_attention(q, k, v)
+
+    def forward(self, x, context=None, mask=None, ip_context=None,
+                ip_scale=1.0):
         context = x if context is None else context
         b, l, dim = x.shape
         lc = context.shape[1]
@@ -96,11 +119,15 @@ class _Attention(nn.Module):
             w = torch.softmax(logits, dim=-1).to(v.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", w.float(),
                                v.float()).to(q.dtype)
-        elif plain:
-            out = _plain_mha(q, k, v)
         else:
-            out = multi_head_attention(q, k, v)
-        return self.to_out(out.reshape(b, l, dim))
+            out = self._mha(q, k, v)
+        out = out.reshape(b, l, dim)
+        if ip_context is not None:
+            li = ip_context.shape[1]
+            k_ip = self.to_k_ip(ip_context).reshape(b, li, self.heads, hd)
+            v_ip = self.to_v_ip(ip_context).reshape(b, li, self.heads, hd)
+            out = out + ip_scale * self._mha(q, k_ip, v_ip).reshape(b, l, dim)
+        return self.to_out(out)
 
 
 class _GEGLU(nn.Module):
@@ -115,11 +142,11 @@ class _GEGLU(nn.Module):
 
 
 class _LayerNorm(nn.LayerNorm):
-    """LayerNorm (eps 1e-5) with f32 statistics, output in the input's
-    dtype."""
+    """LayerNorm (eps 1e-5, diffusers'; flax's default is 1e-6) with f32
+    statistics, output in the input's dtype."""
 
-    def __init__(self, dim: int):
-        super().__init__(dim, eps=1e-5)
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__(dim, eps=eps)
 
     def forward(self, x):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
@@ -127,22 +154,26 @@ class _LayerNorm(nn.LayerNorm):
 
 
 class _Block2p5D(nn.Module):
-    """BasicTransformerBlock + reference and multiview attention."""
+    """BasicTransformerBlock + reference and multiview attention (those two
+    only with ``multiview``)."""
 
     def __init__(self, dim: int, heads: int, context_dim: int,
-                 attn_backend: str | None):
+                 attn_backend: str | None, multiview: bool = True,
+                 ip_adapter: bool = False):
         super().__init__()
         self.norm1 = _LayerNorm(dim)
         self.attn1 = _Attention(dim, heads, attn_backend=attn_backend)
-        self.attn_refview = _Attention(dim, heads, attn_backend=attn_backend)
-        self.attn_multiview = _Attention(dim, heads, attn_backend=attn_backend)
+        if multiview:
+            self.attn_refview = _Attention(dim, heads, attn_backend=attn_backend)
+            self.attn_multiview = _Attention(dim, heads,
+                                             attn_backend=attn_backend)
         self.norm2 = _LayerNorm(dim)
-        self.attn2 = _Attention(dim, heads, context_dim, attn_backend)
+        self.attn2 = _Attention(dim, heads, context_dim, attn_backend, ip_adapter)
         self.norm3 = _LayerNorm(dim)
         self.ff = _GEGLU(dim)
 
     def forward(self, x, context, n_views: int, mode: str, ref_bank, bank_out,
-                ref_scale, mva_scale, mva_masks):
+                ref_scale, mva_scale, mva_masks, ip_tokens=None, ip_scale=1.0):
         h = self.norm1(x)
         x = x + self.attn1(h)
         b = x.shape[0] // n_views
@@ -158,20 +189,23 @@ class _Block2p5D(nn.Module):
             mask = None if mva_masks is None else mva_masks.get(hm.shape[1])
             ma = self.attn_multiview(hm, mask=mask)
             x = x + mva_scale * ma.reshape(b * n_views, h.shape[1], h.shape[2])
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, ip_context=ip_tokens,
+                           ip_scale=ip_scale)
         return x + self.ff(self.norm3(x))
 
 
 class _Transformer2D(nn.Module):
     def __init__(self, dim: int, heads: int, context_dim: int, depth: int,
-                 attn_backend: str | None):
+                 attn_backend: str | None, multiview: bool = True,
+                 ip_adapter: bool = False):
         super().__init__()
         self.depth = depth
         self.norm = GroupNorm(dim, 1e-6)
         self.proj_in = Dense(dim, dim)
         for i in range(depth):
             setattr(self, f"block_{i}",
-                    _Block2p5D(dim, heads, context_dim, attn_backend))
+                    _Block2p5D(dim, heads, context_dim, attn_backend, multiview,
+                               ip_adapter))
         self.proj_out = Dense(dim, dim)
 
     def forward(self, x, context, name: str, bank: dict | None,
@@ -208,30 +242,49 @@ class _ResnetBlock(nn.Module):
         return (x if self.shortcut is None else self.shortcut(x)) + h
 
 
+def time_embedding(mod: nn.Module, t, device, dtype):
+    """The SD time embedding of ``mod`` (a UNet or ControlNet with
+    ``time_fc1`` / ``time_fc2``): the cos|sin ramp over the first block's
+    width, then the two-layer MLP."""
+    half = mod.block_channels[0] // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, device=device).float() / half)
+    ang = t.float()[:, None] * freqs[None]
+    temb = torch.cat([torch.cos(ang), torch.sin(ang)], -1).to(dtype)
+    return mod.time_fc2(F.silu(mod.time_fc1(temb)))
+
+
 class UNet2p5D(nn.Module):
     """``(B*N, 12, H, W)`` latents -> ``(B*N, 4, H, W)`` f32 noise
     prediction. Views are folded into the batch (``n_views``); ``mode`` is
     ``"w"`` (return the reference bank as well), ``"r"`` (read
-    ``ref_bank``) or ``""``."""
+    ``ref_bank``) or ``""``. ``multiview=False`` leaves out the reference
+    and multiview attentions, ``num_camera_embeds=0`` the camera embedding;
+    ``ip_adapter=True`` adds the image-prompt projections."""
 
     def __init__(self, in_channels: int = 12, out_channels: int = 4,
                  block_channels=(320, 640, 1280, 1280), layers_per_block: int = 2,
                  context_dim: int = 1024, head_dim: int = 64, tf_depth: int = 1,
-                 num_camera_embeds: int = 49, attn_backend: str | None = None):
+                 num_camera_embeds: int = 49, attn_backend: str | None = None,
+                 multiview: bool = True, ip_adapter: bool = False):
         super().__init__()
         chs = tuple(block_channels)
         self.block_channels = chs
         self.layers_per_block = layers_per_block
+        self.context_dim = context_dim
+        self.head_dim = head_dim
+        self.tf_depth = tf_depth
         ch0 = chs[0]
         temb = 4 * ch0
         self.time_fc1 = Dense(ch0, temb)
         self.time_fc2 = Dense(temb, temb)
-        self.camera_embedding = nn.Embedding(num_camera_embeds, temb)
+        if num_camera_embeds:
+            self.camera_embedding = nn.Embedding(num_camera_embeds, temb)
         self.conv_in = Conv(in_channels, ch0, 3, padding=1)
 
         def tf(ch):
             return _Transformer2D(ch, ch // head_dim, context_dim, tf_depth,
-                                  attn_backend)
+                                  attn_backend, multiview, ip_adapter)
         skip_ch = [ch0]
         prev = ch0
         for bi, ch in enumerate(chs):
@@ -264,20 +317,17 @@ class UNet2p5D(nn.Module):
 
     def forward(self, x, t, context, camera_ids=None, n_views: int = 1,
                 mode: str = "", ref_bank: dict | None = None, ref_scale=1.0,
-                mva_scale=1.0, mva_masks: dict | None = None):
+                mva_scale=1.0, mva_masks: dict | None = None,
+                control_residuals=None, ip_tokens=None, ip_scale=1.0):
         dtype = self.conv_in.weight.dtype
-        ch0 = self.block_channels[0]
-        half = ch0 // 2
-        freqs = torch.exp(-math.log(10000.0)
-                          * torch.arange(half, device=x.device).float() / half)
-        ang = t.float()[:, None] * freqs[None]
-        temb = torch.cat([torch.cos(ang), torch.sin(ang)], -1).to(dtype)
-        temb = self.time_fc2(F.silu(self.time_fc1(temb)))
+        temb = time_embedding(self, t, x.device, dtype)
         if camera_ids is not None:
             temb = temb + self.camera_embedding(camera_ids).to(temb.dtype)
         record: dict = {}
         kw = dict(n_views=n_views, mode=mode, ref_scale=ref_scale,
-                  mva_scale=mva_scale, mva_masks=mva_masks)
+                  mva_scale=mva_scale, mva_masks=mva_masks,
+                  ip_tokens=None if ip_tokens is None else ip_tokens.to(dtype),
+                  ip_scale=ip_scale)
         context = context.to(dtype)
 
         def tf(name, h):
@@ -295,9 +345,19 @@ class UNet2p5D(nn.Module):
             if bi < n - 1:
                 h = getattr(self, f"down_{bi}_downsample")(h)
                 skips.append(h)
+        if control_residuals is not None:
+            # one residual per skip, rounded to the compute dtype where the
+            # JAX package's next convolution rounds the sum
+            down_res, mid_res = control_residuals
+            if len(down_res) != len(skips):
+                raise ValueError(f"{len(down_res)} control residuals for "
+                                 f"{len(skips)} skips")
+            skips = [(s + r).to(s.dtype) for s, r in zip(skips, down_res)]
         h = self.mid_res_0(h, temb)
         h = tf("mid_tf", h)
         h = self.mid_res_1(h, temb)
+        if control_residuals is not None:
+            h = (h + mid_res).to(h.dtype)
         for bi in reversed(range(n)):
             for li in range(self.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], 1)

@@ -65,6 +65,7 @@ from motion324_tpu_torch.parallel.distributed import is_initialized
 from motion324_tpu_torch.parallel.mesh import Mesh, make_mesh
 from motion324_tpu_torch.utils.convert import load_reference_state_dict
 from motion324_tpu_torch.utils.logging import log
+from motion324_tpu_torch.utils.profiling import phase_timer
 
 __all__ = ["MotionPipeline", "prepare_mesh_inputs", "load_video",
            "resize_frames", "to_blender_coords", "build_u2net"]
@@ -337,20 +338,27 @@ class MotionPipeline:
         the model's input size on the host instead of in the model.
         """
         os.makedirs(output_dir, exist_ok=True)
-        video = load_video(video_path, max_frames,
-                           dtype=np.uint8 if uint8_upload else np.float32,
-                           resize_to=self.cfg.image_size if host_resize else None)
-        mesh = load_mesh(mesh_path)
-        inputs, _, norm_mesh = prepare_mesh_inputs(mesh, num_shape_samples)
-        trajs = self.predict(inputs, video,
-                             self._seg_mode(use_segmentation, segmentation_params),
-                             segmentation_params)
+        with phase_timer("video decode"):
+            video = load_video(video_path, max_frames,
+                               dtype=np.uint8 if uint8_upload else np.float32,
+                               resize_to=self.cfg.image_size if host_resize
+                               else None)
+        with phase_timer("mesh load+sample"):
+            mesh = load_mesh(mesh_path)
+            inputs, _, norm_mesh = prepare_mesh_inputs(mesh, num_shape_samples)
+        # predict hands the trajectories back on the host: its end is the
+        # device's
+        with phase_timer("model predict"):
+            trajs = self.predict(inputs, video, self._seg_mode(
+                use_segmentation, segmentation_params), segmentation_params)
         if smooth:
-            trajs = smooth_trajectories(trajs, method="combined",
-                                        motion_threshold=0.002, sigma=1.0)
+            with phase_timer("smoothing"):
+                trajs = smooth_trajectories(trajs, method="combined",
+                                            motion_threshold=0.002, sigma=1.0)
         out_path = os.path.join(output_dir, "output_animation.glb")
         if self.writer:
-            self._export(out_path, trajs[0], norm_mesh, fps)
+            with phase_timer("glb export"):
+                self._export(out_path, trajs[0], norm_mesh, fps)
         return out_path
 
     def run_batch(self, jobs, output_dir: str, num_shape_samples: int = 16384,

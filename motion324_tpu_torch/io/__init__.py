@@ -17,4 +17,4 @@ from motion324_tpu_torch.io.glb import (  # noqa: F401
 from motion324_tpu_torch.io.fbx import export_animated_fbx, load_fbx  # noqa: F401
 from motion324_tpu_torch.io.abc import export_animated_abc, read_abc  # noqa: F401
 from motion324_tpu_torch.io.png import decode_png, encode_png  # noqa: F401
-from motion324_tpu_torch.io.video import read_video  # noqa: F401
+from motion324_tpu_torch.io.video import read_video, write_video  # noqa: F401

@@ -1,15 +1,18 @@
-"""Video decoding via OpenCV (imported when a video is read).
+"""Video file I/O via OpenCV (imported when a video is read or written).
 
 The reference reads videos with imageio/ffmpeg (scripts/
-inference_with_video_mesh.py:26-57); here decoding goes through cv2, with
-the BGR->RGB conversion handled internally.
+inference_with_video_mesh.py:26-57) and writes them with imageio + libx264
+(scripts/images2video.py); here both go through cv2, with the BGR <-> RGB
+conversion handled internally.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-__all__ = ["read_video"]
+__all__ = ["read_video", "write_video"]
 
 
 def read_video(path: str, max_frames: int | None = None,
@@ -54,3 +57,22 @@ def read_video(path: str, max_frames: int | None = None,
         return out  # float frames were already converted in the loop
     return out.astype(np.float32) / 255.0
 
+
+
+def write_video(path: str, frames: np.ndarray, fps: int = 12) -> str:
+    """frames (T, H, W, 3) uint8 or float [0,1] RGB -> mp4 (mp4v codec)."""
+    import cv2
+    frames = np.asarray(frames)
+    if frames.dtype != np.uint8:
+        frames = (np.clip(frames, 0, 1) * 255).astype(np.uint8)
+    t, h, w = frames.shape[:3]
+    h2, w2 = h - h % 2, w - w % 2
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
+                             fps, (w2, h2))
+    if not writer.isOpened():
+        raise RuntimeError(f"cannot open VideoWriter for {path}")
+    for f in frames:
+        writer.write(cv2.cvtColor(f[:h2, :w2], cv2.COLOR_RGB2BGR))
+    writer.release()
+    return path

@@ -10,6 +10,10 @@
   texture (texture generation), held against :func:`vertex_inpaint_numpy`;
 - :func:`inpaint_ns`: the Navier-Stokes hole fill of an RGB uint8 image by
   fast marching, the semantics of ``cv2.inpaint(..., cv2.INPAINT_NS)``;
+- :func:`build_hierarchy`: the sparse voxel hierarchy (neighbour tables,
+  parent maps, corner flags) of three layered orthographic position maps,
+  the voxel backbone of FlashVDM texgen turbo attention; no path of the
+  port calls it;
 - :func:`murmur3_x64_128` and :func:`spooky_hash128`: the 128-bit hashes
   of the Alembic writer (:mod:`motion324_tpu_torch.io.abc`), held against
   the numpy versions :func:`murmur3_x64_128_numpy` and
@@ -39,12 +43,14 @@ import numpy as np
 __all__ = ["marching_cubes", "qem_simplify", "trilinear_upsample",
            "shell_indices", "vertex_inpaint", "vertex_inpaint_numpy",
            "inpaint_ns", "murmur3_x64_128", "murmur3_x64_128_numpy",
-           "spooky_hash128", "spooky_hash128_numpy", "build"]
+           "spooky_hash128", "spooky_hash128_numpy", "build_hierarchy",
+           "build"]
 
 _DIR = Path(__file__).resolve().parent
 _BUILD_DIR = _DIR.parent / "build"
 _SOURCES = ("marching_cubes.cpp", "qem_simplify.cpp", "trilinear.cpp",
-            "shell.cpp", "mesh_processor.cpp", "inpaint.cpp", "hashes.cpp")
+            "shell.cpp", "mesh_processor.cpp", "inpaint.cpp", "hashes.cpp",
+            "grid_hierarchy.cpp")
 _FLAGS = ["-O3", "-shared", "-fPIC"]
 _lib: ctypes.CDLL | None = None
 
@@ -89,10 +95,12 @@ def _get() -> ctypes.CDLL:
         u64 = ctypes.c_uint64
         lib.murmur3_x64_128.argtypes = [p, u64, ctypes.c_uint32, p]
         lib.spooky_hash128.argtypes = [p, u64, u64, u64, p]
+        lib.build_hierarchy.argtypes = ([p, i, p] * 3 + [i, i, i, i]
+                                        + [p, i, p, p, p, i, p, p, i, p, p])
         for fn in (lib.marching_tetrahedra, lib.qem_simplify,
                    lib.trilinear_upsample, lib.shell_indices,
                    lib.vertex_inpaint, lib.inpaint_ns, lib.murmur3_x64_128,
-                   lib.spooky_hash128):
+                   lib.spooky_hash128, lib.build_hierarchy):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -505,3 +513,61 @@ def spooky_hash128(data: bytes, seed1: int = 0, seed2: int = 0) -> bytes:
     :func:`spooky_hash128_numpy` is its plain version."""
     return _hash128(_get().spooky_hash128, data, ctypes.c_uint64(seed1),
                     ctypes.c_uint64(seed2))
+
+
+def build_hierarchy(view_positions, view_normals, num_level: int = 3,
+                    resolution: int = 256) -> dict:
+    """Sparse voxel hierarchy from three orthographic layered position maps
+    (reference: .../custom_rasterizer_kernel/grid_neighbor.cpp:311-433).
+
+    ``view_positions``: three ``(L, H, W, 4)`` float32 arrays, xyz and a
+    validity flag (0 = empty pixel); ``view_normals``: three ``(L, H, W,
+    3)``. Returns ``positions`` (N0, 3) level-0 voxel centres (seen and
+    padded), ``origin_mask`` (N0,) (1 = seen), and per level ``neighbors``
+    (Nl, 9) int64 (-1 absent), ``downsample`` (Nl,) parent indices (all
+    levels but the last), ``even_corners`` / ``odd_corners`` (Nl,) flags,
+    and ``level_sizes``."""
+    lib = _get()
+    vp = [np.ascontiguousarray(a, np.float32) for a in view_positions]
+    vn = [np.ascontiguousarray(a, np.float32) for a in view_normals]
+    if len(vp) != 3 or len(vn) != 3:
+        raise ValueError("exactly 3 views required")
+    h, w = vp[0].shape[1], vp[0].shape[2]
+    cap_pos = 1 << 18
+    for _ in range(8):
+        cap_nb = cap_pos * 2 * 9
+        positions = np.empty((cap_pos, 3), np.float32)
+        origin = np.empty(cap_pos, np.float32)
+        neighbors = np.empty(cap_nb, np.int64)
+        level_sizes = np.zeros(num_level, np.int32)
+        downsample = np.empty(cap_pos * 2, np.int64)
+        even = np.empty(cap_nb // 9, np.int64)
+        odd = np.empty(cap_nb // 9, np.int64)
+        n_pos = ctypes.c_int(0)
+        views = []
+        for a, n in zip(vp, vn):
+            views += [_ptr(a), a.shape[0], _ptr(n)]
+        ret = lib.build_hierarchy(
+            *views, h, w, num_level, resolution, _ptr(positions), cap_pos,
+            ctypes.byref(n_pos), _ptr(origin), _ptr(neighbors), cap_nb,
+            _ptr(level_sizes), _ptr(downsample), cap_pos * 2, _ptr(even),
+            _ptr(odd))
+        if ret in (3, 4, 5):      # an output buffer too small: grow them all
+            cap_pos *= 2
+            continue
+        if ret != 0:
+            raise RuntimeError(f"build_hierarchy failed with code {ret}")
+        sizes = level_sizes.tolist()
+        offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+        return {"positions": positions[:n_pos.value].copy(),
+                "origin_mask": origin[:n_pos.value].copy(),
+                "neighbors": [neighbors[a * 9:b * 9].reshape(-1, 9).copy()
+                              for a, b in zip(offsets[:-1], offsets[1:])],
+                "downsample": [downsample[a:b].copy() for a, b in
+                               zip(offsets[:-2], offsets[1:-1])],
+                "even_corners": [even[a:b].copy()
+                                 for a, b in zip(offsets[:-1], offsets[1:])],
+                "odd_corners": [odd[a:b].copy()
+                                for a, b in zip(offsets[:-1], offsets[1:])],
+                "level_sizes": sizes}
+    raise RuntimeError("build_hierarchy: capacity negotiation failed")

@@ -21,6 +21,12 @@
   (``unet``, ``vae``) -> the state dicts of the port's ``UNet2p5D`` and
   ``AutoencoderKL``, whose module names are the flax names
   (:func:`flax_to_state_dict`).
+- :func:`diffusion_params_from_jax`: the params of the JAX package's
+  texture extras (the UNet with IP-Adapter projections, ControlNet,
+  Resampler; the IP2P delighter; the x4 upscaler; HunyuanDiT2D) -> the
+  port's state dicts, through :func:`flax_to_state_dict`, which also maps
+  a CLIP text tower's tree; :func:`text2image_params_from_jax` the
+  text-to-image pipeline's, its DiT through the shape DiT's mapping;
 - :func:`u2net_params_from_jax`, :func:`isnet_params_from_jax`: the JAX
   package's U2Net / ISNet variables (``{"params", "batch_stats"}``) -> the
   public ``u2net.pth`` / ``isnet-general-use`` state dict that the port's
@@ -38,7 +44,8 @@ __all__ = ["params_from_jax", "load_reference_state_dict",
            "shape_params_from_jax", "dinov2_hf_state_dict",
            "hunyuan_ckpt_state_dicts", "flax_to_state_dict",
            "paint_params_from_jax", "u2net_params_from_jax",
-           "isnet_params_from_jax"]
+           "isnet_params_from_jax", "diffusion_params_from_jax",
+           "text2image_params_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -323,11 +330,18 @@ def hunyuan_ckpt_state_dicts(ckpt: dict, mv: bool = False):
     return out, dims
 
 
+# params that are raw arrays, not a layer's kernel / scale / embedding
+_RAW_LEAVES = ("latents", "token_embedding", "position_embedding",
+               "positional_embedding", "text_embedding_padding")
+
+
 def flax_to_state_dict(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
     """A flax param tree whose module names are the port's -> its state
     dict: Dense ``kernel (in, out)`` -> ``weight (out, in)``; Conv ``kernel
     (kh, kw, in, out)`` -> ``weight (out, in, kh, kw)``; norm ``scale`` ->
-    ``weight``; Embed ``embedding`` -> ``weight``; ``bias`` as it is."""
+    ``weight``; Embed ``embedding`` -> ``weight``; ``bias`` and the raw
+    parameters (the resampler's latents, the CLIP and HunyuanDiT tables) as
+    they are."""
     out: dict[str, torch.Tensor] = {}
     for key, val in tree.items():
         name = f"{prefix}{key}"
@@ -340,11 +354,15 @@ def flax_to_state_dict(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
             out[f"{prefix}weight"] = _t(a)
         elif key in ("scale", "embedding"):
             out[f"{prefix}weight"] = _t(a)
-        elif key == "bias":
+        elif key == "bias" or key in _RAW_LEAVES:
             out[name] = _t(a)
         else:
             raise KeyError(f"unexpected flax leaf {name}")
     return out
+
+
+def _inner(tree: dict) -> dict:
+    return tree.get("params", tree)
 
 
 def paint_params_from_jax(params: dict):
@@ -353,6 +371,26 @@ def paint_params_from_jax(params: dict):
     ``UNet2p5D`` and ``AutoencoderKL``."""
     return (flax_to_state_dict(params["unet"]["params"]),
             flax_to_state_dict(params["vae"]["params"]))
+
+
+def diffusion_params_from_jax(params: dict) -> dict:
+    """The params of a JAX diffusion pipeline whose modules carry the
+    port's names (``Img2ImgControlPipeline``: unet with ``to_k_ip`` /
+    ``to_v_ip``, controlnet, vae, resampler; ``DelightDiffusion``;
+    ``Upscaler``; ``HunyuanDiTImagePipeline``: transformer, vae) -> the
+    port's: each param tree a state dict, each array (a prompt
+    embedding) f32."""
+    return {k: (flax_to_state_dict(_inner(v)) if isinstance(v, dict)
+                else np.asarray(v, np.float32)) for k, v in params.items()}
+
+
+def text2image_params_from_jax(params: dict) -> dict:
+    """The JAX ``TextToImagePipeline.params`` (``text``, ``dit``, ``vae``)
+    -> the port's three state dicts; the DiT's scanned block stacks split
+    per block as the shape DiT's are."""
+    return {"text": flax_to_state_dict(_inner(params["text"])),
+            "dit": _dit_from_jax(_inner(params["dit"])),
+            "vae": flax_to_state_dict(_inner(params["vae"]))}
 
 
 _U2NET_HEIGHTS = {"stage1": 7, "stage2": 6, "stage3": 5, "stage4": 4,

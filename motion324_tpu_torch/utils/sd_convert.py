@@ -1,6 +1,6 @@
 """diffusers-layout checkpoint -> the JAX package's flax-layout param trees.
 
-The port's own copy of the UNet and VAE converters of
+The port's own copy of the UNet, VAE and ControlNet converters of
 ``motion324_tpu/utils/sd_convert.py`` (numpy only). The released
 HunyuanPaint ``UNet2p5DConditionModel`` wraps a diffusers
 ``UNet2DConditionModel`` (keys with a ``unet.`` prefix and the extra
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["convert_sd_unet", "convert_sd_vae"]
+__all__ = ["convert_sd_unet", "convert_sd_vae", "convert_controlnet"]
 
 
 class _SD:
@@ -87,10 +87,16 @@ def _vae_resnet(sd: _SD, name):
 
 
 def _attn(sd: _SD, name):
-    return {"to_q": _dense(sd, f"{name}.to_q"),
-            "to_k": _dense(sd, f"{name}.to_k"),
-            "to_v": _dense(sd, f"{name}.to_v"),
-            "to_out": _dense(sd, f"{name}.to_out.0")}
+    p = {"to_q": _dense(sd, f"{name}.to_q"),
+         "to_k": _dense(sd, f"{name}.to_k"),
+         "to_v": _dense(sd, f"{name}.to_v"),
+         "to_out": _dense(sd, f"{name}.to_out.0")}
+    # IP-Adapter's decoupled projections, where diffusers' IP-Adapter
+    # processor holds them (a ModuleList of one per image prompt)
+    for ip in ("to_k_ip", "to_v_ip"):
+        if f"{name}.processor.{ip}.0.weight" in sd:
+            p[ip] = _dense(sd, f"{name}.processor.{ip}.0")
+    return p
 
 
 def _tf_block(sd: _SD, name):
@@ -189,6 +195,34 @@ def convert_sd_unet(state_dict: dict, *, strict: bool = True) -> dict:
                 sd, f"up_blocks.{u}.upsamplers.0.conv")
     out["norm_out"] = _norm(sd, "conv_norm_out")
     out["conv_out"] = _conv(sd, "conv_out")
+    if strict:
+        sd.assert_consumed()
+    return {"params": out}
+
+
+def convert_controlnet(state_dict: dict, *, strict: bool = True) -> dict:
+    """diffusers ``ControlNetModel`` -> :class:`ControlNet` flax params."""
+    sd = _SD(state_dict)
+    n_blocks, layers_per_block, tf_depth = _unet_structure(sd)
+    out: dict = {}
+    _unet_down_mid(sd, out, n_blocks, layers_per_block, tf_depth)
+    hint = {"conv_in": _conv(sd, "controlnet_cond_embedding.conv_in"),
+            "conv_out": _conv(sd, "controlnet_cond_embedding.conv_out")}
+    # diffusers blocks 0..5 pair up as (a, b) per resolution step
+    n_hint = sum(1 for k in sd.sd
+                 if k.startswith("controlnet_cond_embedding.blocks.")
+                 and k.endswith(".weight"))
+    for i in range(n_hint // 2):
+        hint[f"block_{i}_a"] = _conv(
+            sd, f"controlnet_cond_embedding.blocks.{2 * i}")
+        hint[f"block_{i}_b"] = _conv(
+            sd, f"controlnet_cond_embedding.blocks.{2 * i + 1}")
+    out["hint_encoder"] = hint
+    n_zero = sum(1 for k in sd.sd if k.startswith("controlnet_down_blocks.")
+                 and k.endswith(".weight"))
+    for i in range(n_zero):
+        out[f"zero_conv_{i}"] = _conv(sd, f"controlnet_down_blocks.{i}")
+    out["zero_conv_mid"] = _conv(sd, "controlnet_mid_block")
     if strict:
         sd.assert_consumed()
     return {"params": out}

@@ -175,6 +175,27 @@ def test_evaluation_modules_load_no_jax_pil_cv2_yaml(module):
     _check([module], JAX_NAMES + ("PIL", "cv2", "yaml"), ("native", "kernels"))
 
 
+EXTRAS_MODULES = [
+    "motion324_tpu_torch.hy3dgen.img2img", "motion324_tpu_torch.hy3dgen.delight",
+    "motion324_tpu_torch.hy3dgen.super_resolution",
+    "motion324_tpu_torch.hy3dgen.text2image",
+    "motion324_tpu_torch.hy3dgen.hunyuan_dit_image",
+    "motion324_tpu_torch.hy3dgen.diffusion_common",
+    "motion324_tpu_torch.utils.convert", "motion324_tpu_torch.utils.sd_convert",
+    "motion324_tpu_torch.utils.profiling",
+    "motion324_tpu_torch.utils.visualization", "motion324_tpu_torch.io.video",
+    "motion324_tpu_torch.images2video", "motion324_tpu_torch.native"]
+
+
+@pytest.mark.parametrize("module", EXTRAS_MODULES)
+def test_extras_and_tooling_modules_load_no_jax_pil_cv2_plots(module):
+    """Each module of the texture extras and the tooling alone: no JAX, and
+    PIL, cv2, matplotlib and imageio, which the card's machine lacks, stay
+    unloaded until a function needs them; importing builds nothing."""
+    _check([module], JAX_NAMES + ("PIL", "cv2", "matplotlib", "imageio"),
+           ("native", "kernels"))
+
+
 def test_a_probe_sees_what_a_module_loads():
     """The probe itself: a child starts without the port, and reports what
     an import loads."""

@@ -26,8 +26,9 @@ from motion324_tpu.hy3dgen.sd_vae import AutoencoderKL as JaxVAE
 from motion324_tpu.hy3dgen.voxel_attention import (
     multi_resolution_mask as jax_dense_masks,
     multi_resolution_positions as jax_implicit_masks)
+from motion324_tpu_torch.hy3dgen.diffusion_common import random_fill
 from motion324_tpu_torch.hy3dgen.paint_diffusion import (
-    MultiviewDiffusion, lcm_schedule, sd_sigmas, _random_fill)
+    MultiviewDiffusion, lcm_schedule, sd_sigmas)
 from motion324_tpu_torch.hy3dgen.sd_unet import UNet2p5D
 from motion324_tpu_torch.hy3dgen.sd_vae import AutoencoderKL
 from motion324_tpu_torch.hy3dgen.voxel_attention import (
@@ -81,8 +82,8 @@ def models():
     f32 weights; the port's come back through paint_params_from_jax."""
     gen = torch.Generator().manual_seed(0)
     unet, vae = UNet2p5D(**UNET), AutoencoderKL(**VAE)
-    _random_fill(unet, gen)
-    _random_fill(vae, gen)
+    random_fill(unet, gen)
+    random_fill(vae, gen)
     flax = {"unet": {"params": to_flax(unet)}, "vae": {"params": to_flax(vae)}}
     text = [np.random.RandomState(s).randn(1, 77, 32).astype(np.float32) * 0.02
             for s in (1, 2)]

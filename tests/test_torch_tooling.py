@@ -1,0 +1,186 @@
+"""The port's tooling against the JAX package's, on the CPU: the
+environment-gated phase timers (their report, the device sync, the
+torch.profiler trace, their use in ``MotionPipeline.run``), the three debug
+visualisations, ``write_video``, the ``images2video`` CLI and the native
+``build_hierarchy``, bit for bit against the JAX package's.
+"""
+
+import json
+import os
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from motion324_tpu.io.video import write_video as jax_write_video
+from motion324_tpu.native import build_hierarchy as jax_build_hierarchy
+from motion324_tpu.utils import profiling as jax_profiling
+from motion324_tpu.utils import visualization as jax_vis
+from motion324_tpu_torch import images2video
+from motion324_tpu_torch.io.png import encode_png
+from motion324_tpu_torch.io.video import read_video, write_video
+from motion324_tpu_torch.native import build_hierarchy
+from motion324_tpu_torch.utils import profiling, visualization
+
+ROOT = os.path.join(os.path.dirname(__file__), "..", "examples", "synthetic")
+
+
+def _timer_lines(out: str) -> list[str]:
+    return [ln.split(":")[0] for ln in out.splitlines()
+            if ln.startswith("[motion324 timer]")]
+
+
+def test_phase_timer_and_timed_report_as_the_jax_ones(monkeypatch, capsys):
+    monkeypatch.setattr(profiling, "_ENABLED", False)
+    with profiling.phase_timer("off"):
+        pass
+    assert capsys.readouterr().out == ""
+    for mod in (profiling, jax_profiling):
+        monkeypatch.setattr(mod, "_ENABLED", True)
+        monkeypatch.setattr(mod, "_TRACE_DIR", None)
+    synced = []
+    monkeypatch.setattr(profiling, "_sync", lambda tree: synced.append(tree))
+    x = torch.ones(3)
+    with profiling.phase_timer("stage", sync=[x]):
+        pass
+    double = profiling.timed("double")(lambda a: a * 2)
+    assert torch.equal(double(x), 2 * x)
+    got = capsys.readouterr().out
+    with jax_profiling.phase_timer("stage"):
+        pass
+    jax_profiling.timed("double")(lambda a: a * 2)(np.ones(3))
+    want = capsys.readouterr().out
+    assert _timer_lines(got) == _timer_lines(want) == [
+        "[motion324 timer] stage", "[motion324 timer] double"]
+    assert all(ln.endswith(" ms") for ln in got.splitlines())
+    assert len(synced) == 2 and torch.equal(synced[1], 2 * x)
+
+
+def test_profile_trace_writes_a_chrome_trace(monkeypatch, tmp_path):
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    monkeypatch.setattr(profiling, "_TRACE_DIR", str(tmp_path / "traced"))
+    with profiling.phase_timer("traced"):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    with profiling.profile_trace(str(tmp_path / "explicit")):
+        torch.ones(8).sum()
+    for sub in ("traced", "explicit"):
+        files = os.listdir(tmp_path / sub)
+        assert len(files) == 1 and files[0].endswith(".json")
+        with open(tmp_path / sub / files[0]) as f:
+            assert json.load(f)["traceEvents"]
+
+
+def test_motion_pipeline_run_times_its_phases(monkeypatch, capsys, tmp_path):
+    """``MotionPipeline.run`` under ``MOTION324_DEBUG=1`` times the phases
+    the JAX package's run times, once each (the video decode is not
+    overlapped with the mesh load here)."""
+    from motion324_tpu_torch.config import ModelConfig
+    from motion324_tpu_torch.inference.pipeline import MotionPipeline
+    from test_torch_pipeline import SMALL
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    monkeypatch.setattr(profiling, "_TRACE_DIR", None)
+    pipe = MotionPipeline(ModelConfig(**SMALL), window=3, decode_chunk=16,
+                          device="cpu")
+    pipe.run(os.path.join(ROOT, "blob.glb"), os.path.join(ROOT, "blob.mp4"),
+             str(tmp_path), num_shape_samples=64, max_frames=4)
+    names = [ln.split("] ")[1] for ln in _timer_lines(capsys.readouterr().out)]
+    assert names == ["video decode", "mesh load+sample", "model predict",
+                     "smoothing", "glb export"]
+
+
+def _trajs(seed, t=5, n=300):
+    rng = np.random.RandomState(seed)
+    base = rng.randn(1, 1, n, 3).astype(np.float32) * 0.3
+    return base + np.cumsum(rng.randn(1, t, n, 3) * 0.01, 1).astype(np.float32)
+
+
+def test_visualizations_match_the_jax_ones(tmp_path):
+    """Each figure, drawn from the same inputs by each package, decodes to
+    the same pixels."""
+    import imageio.v3 as iio
+    rng = np.random.RandomState(0)
+    inputs = {"ref_shape_pcd": rng.randn(1, 200, 3), "ref_pcd": rng.randn(1, 50, 3),
+              "ref_shape_rgbs": rng.rand(1, 200, 3),
+              "ref_shape_normals": rng.randn(1, 200, 3)}
+    trajs, gt = _trajs(1), _trajs(2)
+    smooth = trajs * 0.9
+    runs = [
+        ("inputs.png", lambda m, p: m.visualize_input_data(inputs, p)),
+        ("motion.gif", lambda m, p: m.visualize_point_cloud_motion(
+            trajs, p, gt=gt, fps=4, max_points=100)),
+        ("smoothing.png", lambda m, p: m.plot_smoothing_comparison(
+            trajs, smooth, 0.002, p)),
+    ]
+    for name, draw in runs:
+        got = draw(visualization, str(tmp_path / "port" / name))
+        want = draw(jax_vis, str(tmp_path / "jax" / name))
+        a, b = iio.imread(got), iio.imread(want)
+        assert a.shape == b.shape and a.size > 0, name
+        np.testing.assert_array_equal(a, b)
+
+
+def test_write_video_matches_the_jax_one(tmp_path):
+    """Odd sizes are cropped to even ones; float frames are quantised as
+    the JAX writer quantises them; both files decode to the same frames."""
+    frames = np.random.RandomState(3).rand(4, 33, 47, 3).astype(np.float32)
+    got = write_video(str(tmp_path / "a" / "port.mp4"), frames, fps=8)
+    want = jax_write_video(str(tmp_path / "b" / "jax.mp4"), frames, fps=8)
+    a, b = read_video(got, dtype=np.uint8), read_video(want, dtype=np.uint8)
+    assert a.shape == (4, 32, 46, 3)
+    np.testing.assert_array_equal(a, b)
+
+
+def test_images2video_matches_the_jax_script(tmp_path):
+    """PNGs (RGB, RGBA and grey, read with the port's codec) and a JPEG in
+    natural order (frame_2 before frame_10), against
+    scripts/images2video.py."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "jax_images2video", os.path.join(os.path.dirname(__file__), "..",
+                                         "scripts", "images2video.py"))
+    jax_i2v = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_i2v)
+    rng = np.random.RandomState(4)
+    src = tmp_path / "frames"
+    src.mkdir()
+    for i in (10, 2, 1):
+        img = (rng.rand(24, 32, 3) * 255).astype(np.uint8)
+        if i == 10:
+            img = np.concatenate([img, np.full((24, 32, 1), 200, np.uint8)], -1)
+        (src / f"frame_{i}.png").write_bytes(encode_png(img))
+    cv2.imwrite(str(src / "frame_3.jpg"), (rng.rand(24, 32, 3) * 255).astype(np.uint8))
+    names = sorted(os.listdir(src), key=images2video.natural_key)
+    assert names == ["frame_1.png", "frame_2.png", "frame_3.jpg", "frame_10.png"]
+    assert images2video.main(["--input", str(src), "--output",
+                              str(tmp_path / "port.mp4"), "--fps", "6"]) == 0
+    jax_i2v.images_to_video(str(src), str(tmp_path / "jax.mp4"), fps=6)
+    a = read_video(str(tmp_path / "port.mp4"), dtype=np.uint8)
+    b = read_video(str(tmp_path / "jax.mp4"), dtype=np.uint8)
+    assert a.shape == (4, 24, 32, 3)
+    np.testing.assert_array_equal(a, b)
+    grey = tmp_path / "grey"
+    grey.mkdir()
+    (grey / "0.png").write_bytes(encode_png(np.full((8, 8, 1), 77, np.uint8)))
+    images2video.images_to_video(str(grey), str(tmp_path / "grey.mp4"))
+    assert read_video(str(tmp_path / "grey.mp4"), dtype=np.uint8).shape == (1, 8, 8, 3)
+    with pytest.raises(FileNotFoundError):
+        images2video.images_to_video(str(tmp_path / "grey" / ".."), "x.mp4")
+
+
+@pytest.mark.parametrize("levels,res,h", [(3, 48, 48), (2, 32, 32), (3, 40, 37)])
+def test_build_hierarchy_matches_the_jax_one_bit_for_bit(levels, res, h):
+    from test_native import _sphere_views
+    vp, vn = _sphere_views(H=h)
+    got = build_hierarchy(vp, vn, num_level=levels, resolution=res)
+    want = jax_build_hierarchy(vp, vn, num_level=levels, resolution=res)
+    assert got.keys() == want.keys()
+    assert got["level_sizes"] == want["level_sizes"]
+    for key in ("positions", "origin_mask"):
+        np.testing.assert_array_equal(got[key], want[key])
+    for key in ("neighbors", "downsample", "even_corners", "odd_corners"):
+        assert len(got[key]) == len(want[key])
+        for a, b in zip(got[key], want[key]):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError):
+        build_hierarchy(vp[:2], vn[:2])
