@@ -26,8 +26,6 @@ stages take the same inputs as the JAX package's and give the same outputs.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -43,6 +41,7 @@ from motion324_tpu_torch.hy3dgen.volume import (decode_volume,
 from motion324_tpu_torch.io.mesh import TriMesh
 from motion324_tpu_torch.models.dinov2 import DinoViT
 from motion324_tpu_torch.models.motion_model import init_weights
+from motion324_tpu_torch.utils.profiling import span
 
 __all__ = ["ShapeGenPipeline"]
 
@@ -159,31 +158,38 @@ class ShapeGenPipeline:
         """Condition tokens ``(B, Lc, C)``: ``images`` (B, S, S, 3), or
         (B, V, S, S, 3) with ``view_idxs`` (B, V) for the multiview
         conditioner, in [0, 1]."""
-        images = torch.as_tensor(images, device=self.device).to(self.dtype)
-        if self.conditioner_type == "mv":
-            return self.conditioner(images, torch.as_tensor(
-                view_idxs, device=self.device))
-        return self.conditioner(images)
+        with span("shape.encode_cond"):
+            images = torch.as_tensor(images, device=self.device).to(self.dtype)
+            if self.conditioner_type == "mv":
+                return self.conditioner(images, torch.as_tensor(
+                    view_idxs, device=self.device))
+            return self.conditioner(images)
 
     @torch.inference_mode()
     def denoise(self, latents, cond_pair, sigmas, guidance_scale: float):
         """The CFG flow-matching Euler loop: ``latents`` (1, L, C) f32,
         ``cond_pair`` (2, Lc, C) = [cond, uncond], ``sigmas`` the ladder of
         :func:`flow_match_sigmas`. Returns the f32 latents."""
-        x = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
-        cond_pair = torch.as_tensor(cond_pair, device=self.device)
-        sig = np.asarray(sigmas, np.float32)
-        for i in range(len(sig) - 1):
-            t = torch.full((2,), float(sig[i]), device=self.device)
-            v_cond, v_uncond = self.dit(torch.cat([x, x]), t, cond_pair).chunk(2)
-            v = v_uncond + guidance_scale * (v_cond - v_uncond)
-            x = x + float(sig[i + 1] - sig[i]) * v
-        return x
+        with span("shape.denoise"):
+            x = torch.as_tensor(latents, dtype=torch.float32,
+                                device=self.device)
+            cond_pair = torch.as_tensor(cond_pair, device=self.device)
+            sig = np.asarray(sigmas, np.float32)
+            for i in range(len(sig) - 1):
+                with span("shape.denoise.step"):
+                    t = torch.full((2,), float(sig[i]), device=self.device)
+                    v_cond, v_uncond = self.dit(torch.cat([x, x]), t,
+                                                cond_pair).chunk(2)
+                    v = v_uncond + guidance_scale * (v_cond - v_uncond)
+                    x = x + float(sig[i + 1] - sig[i]) * v
+            return x
 
     @torch.inference_mode()
     def vae_decode(self, latents) -> torch.Tensor:
         """(B, num_latents, latent_dim) -> the processed latent set."""
-        return self.vae.decode(torch.as_tensor(latents, device=self.device))
+        with span("shape.vae_decode"):
+            return self.vae.decode(torch.as_tensor(latents,
+                                                   device=self.device))
 
     @torch.inference_mode()
     def vae_query(self, points, processed) -> torch.Tensor:
@@ -208,57 +214,57 @@ class ShapeGenPipeline:
         is already prepared.
         """
         from motion324_tpu_torch import native
-        times = {}
-        t0 = time.perf_counter()
-        if self.conditioner_type == "mv":
-            if not isinstance(image, dict):
-                raise ValueError("the mv pipeline takes a dict of view tag -> "
-                                 "image (front/left/back/right)")
-            from motion324_tpu_torch.hy3dgen.preprocess_image import (
-                prepare_condition_images_mv)
-            images, _, idxs = prepare_condition_images_mv(
-                image, self.image_size, border_ratio)
-            cond = self.encode_cond(images[None], idxs[None])
-        else:
-            if recenter:
+        stages = {k: span(f"shape.call.{k}", timed=True) for k in (
+            "conditioner", "denoise", "vae_decode", "volume_decode",
+            "marching_cubes")}
+        with stages["conditioner"]:
+            if self.conditioner_type == "mv":
+                if not isinstance(image, dict):
+                    raise ValueError("the mv pipeline takes a dict of view "
+                                     "tag -> image (front/left/back/right)")
                 from motion324_tpu_torch.hy3dgen.preprocess_image import (
-                    prepare_condition_image)
-                image, _ = prepare_condition_image(image, self.image_size,
-                                                   border_ratio)
-            cond = self.encode_cond(self.prepare_image(image))
-        cond_pair = torch.cat([cond, torch.zeros_like(cond)])
-        self._sync()
-        times["conditioner"] = time.perf_counter() - t0
+                    prepare_condition_images_mv)
+                images, _, idxs = prepare_condition_images_mv(
+                    image, self.image_size, border_ratio)
+                cond = self.encode_cond(images[None], idxs[None])
+            else:
+                if recenter:
+                    from motion324_tpu_torch.hy3dgen.preprocess_image import (
+                        prepare_condition_image)
+                    image, _ = prepare_condition_image(image, self.image_size,
+                                                       border_ratio)
+                cond = self.encode_cond(self.prepare_image(image))
+            cond_pair = torch.cat([cond, torch.zeros_like(cond)])
+            self._sync()
 
-        t0 = time.perf_counter()
-        gen = torch.Generator(self.device).manual_seed(seed)
-        latents = torch.randn(1, self.num_latents, self.latent_dim,
-                              generator=gen, device=self.device)
-        latents = self.denoise(latents, cond_pair,
-                               flow_match_sigmas(num_inference_steps),
-                               float(guidance_scale))
-        self._sync()
-        times["denoise"] = time.perf_counter() - t0
+        with stages["denoise"]:
+            gen = torch.Generator(self.device).manual_seed(seed)
+            latents = torch.randn(1, self.num_latents, self.latent_dim,
+                                  generator=gen, device=self.device)
+            latents = self.denoise(latents, cond_pair,
+                                   flow_match_sigmas(num_inference_steps),
+                                   float(guidance_scale))
+            self._sync()
 
-        t0 = time.perf_counter()
-        processed = self.vae_decode(latents)
-        self._sync()
-        times["vae_decode"] = time.perf_counter() - t0
+        with stages["vae_decode"]:
+            processed = self.vae_decode(latents)
+            self._sync()
 
-        t0 = time.perf_counter()
-        kw = dict(resolution=octree_resolution, box_v=box_v, chunk=num_chunks)
-        if enable_flashvdm:
-            grid, chunks = decode_volume_flashvdm(self.vae, processed,
-                                                  topk=flashvdm_topk, **kw)
-        else:
-            decode = decode_volume_hierarchical if hierarchical else decode_volume
-            grid, chunks = decode(self.vae.query, processed, **kw)
-        times["volume_decode"] = time.perf_counter() - t0
+        with stages["volume_decode"]:
+            kw = dict(resolution=octree_resolution, box_v=box_v,
+                      chunk=num_chunks)
+            if enable_flashvdm:
+                grid, chunks = decode_volume_flashvdm(self.vae, processed,
+                                                      topk=flashvdm_topk, **kw)
+            else:
+                decode = (decode_volume_hierarchical if hierarchical
+                          else decode_volume)
+                grid, chunks = decode(self.vae.query, processed, **kw)
 
-        t0 = time.perf_counter()
-        verts, faces = native.marching_cubes(
-            grid, iso=mc_level,
-            bounds=((-box_v, -box_v, -box_v), (box_v, box_v, box_v)))
-        times["marching_cubes"] = time.perf_counter() - t0
-        self.last_run = {"seconds": times, "query_chunks": chunks}
+        with stages["marching_cubes"]:
+            verts, faces = native.marching_cubes(
+                grid, iso=mc_level,
+                bounds=((-box_v, -box_v, -box_v), (box_v, box_v, box_v)))
+        self.last_run = {"seconds": {k: s.seconds for k, s in stages.items()},
+                         "query_chunks": chunks}
         return TriMesh(vertices=verts, faces=faces.astype(np.int64))

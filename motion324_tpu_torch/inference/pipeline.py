@@ -65,7 +65,7 @@ from motion324_tpu_torch.parallel.distributed import is_initialized
 from motion324_tpu_torch.parallel.mesh import Mesh, make_mesh
 from motion324_tpu_torch.utils.convert import load_reference_state_dict
 from motion324_tpu_torch.utils.logging import log
-from motion324_tpu_torch.utils.profiling import phase_timer
+from motion324_tpu_torch.utils.profiling import phase_timer, span
 
 __all__ = ["MotionPipeline", "prepare_mesh_inputs", "load_video",
            "resize_frames", "to_blender_coords", "build_u2net"]
@@ -96,24 +96,28 @@ def load_video(path: str, max_frames: int | None = None,
     """
     if path.endswith((".mp4", ".mov", ".avi", ".mkv")):
         from motion324_tpu_torch.io.video import read_video
-        return read_video(path, max_frames, dtype=dtype, resize_to=resize_to)
+        with span("video.load"):
+            return read_video(path, max_frames, dtype=dtype,
+                              resize_to=resize_to)
     if not path.endswith(".npy"):
         raise ValueError(f"unsupported video file {path!r}: use .mp4, .mov, "
                          f".avi, .mkv or a .npy array of frames")
-    frames = np.load(path)
+    with span("video.load"):
+        frames = np.load(path)
     if frames.ndim != 4:
         raise ValueError(f"{path} holds shape {frames.shape}, not (T, H, W, C)")
-    if max_frames:
-        frames = frames[:max_frames]
-    frames = frames[..., :3]
-    if np.issubdtype(frames.dtype, np.integer):
-        unit = frames.astype(np.float32) / np.iinfo(frames.dtype).max
-    else:
-        unit = np.clip(frames.astype(np.float32), 0.0, 1.0)
-    out = ((unit * 255 + 0.5).astype(np.uint8)
-           if np.dtype(dtype) == np.uint8 else unit)
-    if resize_to:
-        out = resize_frames(out, resize_to)
+    with span("video.convert"):
+        if max_frames:
+            frames = frames[:max_frames]
+        frames = frames[..., :3]
+        if np.issubdtype(frames.dtype, np.integer):
+            unit = frames.astype(np.float32) / np.iinfo(frames.dtype).max
+        else:
+            unit = np.clip(frames.astype(np.float32), 0.0, 1.0)
+        out = ((unit * 255 + 0.5).astype(np.uint8)
+               if np.dtype(dtype) == np.uint8 else unit)
+        if resize_to:
+            out = resize_frames(out, resize_to)
     return out
 
 
@@ -249,12 +253,13 @@ class MotionPipeline:
         clip's frames per call, so that a clip's mask does not depend on
         the batch it runs in: the convolutions' algorithms, and so their
         bf16 rounding, follow the batch size."""
-        if segment == "u2net":
-            prob = torch.stack([net(clip) for clip in x])
-            return x * (prob > 0.5)[..., None].to(x.dtype)
-        if segment:
-            return x * _border_segment(x)[..., None]
-        return x
+        with span("predict.segment"):
+            if segment == "u2net":
+                prob = torch.stack([net(clip) for clip in x])
+                return x * (prob > 0.5)[..., None].to(x.dtype)
+            if segment:
+                return x * _border_segment(x)[..., None]
+            return x
 
     @torch.inference_mode()
     def predict(self, inputs, video: np.ndarray, segment=False,
@@ -283,9 +288,11 @@ class MotionPipeline:
                              f"'u2net', not {segment!r}")
         net = self._segmenter(seg_params) if segment == "u2net" else None
         m = self.model
-        mesh_feat = m.encode_shape(self._tensor(inputs["ref_shape_pcd"]),
-                                   self._tensor(inputs["ref_shape_normals"]),
-                                   self._tensor(inputs["ref_shape_rgbs"]))
+        with span("predict.encode_shape"):
+            mesh_feat = m.encode_shape(
+                self._tensor(inputs["ref_shape_pcd"]),
+                self._tensor(inputs["ref_shape_normals"]),
+                self._tensor(inputs["ref_shape_rgbs"]))
         pts = [self._tensor(inputs[k]) for k in ("ref_pcd", "ref_normal", "ref_rgb")]
         n = pts[0].shape[1]
 
@@ -300,21 +307,27 @@ class MotionPipeline:
                 window = window[sp.rank * f:(sp.rank + 1) * f]
             x = self._tensor(np.swapaxes(window, 0, 1))
             x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-            tokens = m.encode_video(self._mask(x, segment, net), mesh_feat,
-                                    sp=sp)
-            parts = [m.decode_points(tokens, *(p[:, i:i + self.decode_chunk]
-                                               for p in pts))
-                     for i in range(0, n, self.decode_chunk)]
-            out = all_gather_seq(torch.cat(parts, dim=2), 1, sp)
-            return out.cpu().numpy()
+            x = self._mask(x, segment, net)
+            with span("predict.encode_video"):
+                tokens = m.encode_video(x, mesh_feat, sp=sp)
+            parts = []
+            for i in range(0, n, self.decode_chunk):
+                with span("predict.decode_points"):
+                    parts.append(m.decode_points(
+                        tokens, *(p[:, i:i + self.decode_chunk] for p in pts)))
+            with span("predict.to_host"):
+                out = all_gather_seq(torch.cat(parts, dim=2), 1, sp)
+                return out.cpu().numpy()
 
         return sliding_window_predict(forward, np.swapaxes(videos, 0, 1),
                                       self.window, inputs["ref_pcd"])
 
     def _export(self, out_path: str, trajs: np.ndarray, norm_mesh, fps: int):
-        export_animated_glb(out_path, to_blender_coords(norm_mesh.vertices),
-                            norm_mesh.faces, to_blender_coords(trajs),
-                            fps=fps, uv=norm_mesh.uv, texture=norm_mesh.texture,
+        with span("export.glb.coords"):
+            verts = to_blender_coords(norm_mesh.vertices)
+            trajs = to_blender_coords(trajs)
+        export_animated_glb(out_path, verts, norm_mesh.faces, trajs, fps=fps,
+                            uv=norm_mesh.uv, texture=norm_mesh.texture,
                             vertex_colors=norm_mesh.vertex_colors)
 
     def _seg_mode(self, use_segmentation: bool, seg_params):
@@ -338,27 +351,30 @@ class MotionPipeline:
         the model's input size on the host instead of in the model.
         """
         os.makedirs(output_dir, exist_ok=True)
-        with phase_timer("video decode"):
-            video = load_video(video_path, max_frames,
-                               dtype=np.uint8 if uint8_upload else np.float32,
-                               resize_to=self.cfg.image_size if host_resize
-                               else None)
-        with phase_timer("mesh load+sample"):
-            mesh = load_mesh(mesh_path)
-            inputs, _, norm_mesh = prepare_mesh_inputs(mesh, num_shape_samples)
-        # predict hands the trajectories back on the host: its end is the
-        # device's
-        with phase_timer("model predict"):
-            trajs = self.predict(inputs, video, self._seg_mode(
-                use_segmentation, segmentation_params), segmentation_params)
-        if smooth:
-            with phase_timer("smoothing"):
-                trajs = smooth_trajectories(trajs, method="combined",
-                                            motion_threshold=0.002, sigma=1.0)
-        out_path = os.path.join(output_dir, "output_animation.glb")
-        if self.writer:
-            with phase_timer("glb export"):
-                self._export(out_path, trajs[0], norm_mesh, fps)
+        with span("motion.run", trace=True):
+            with phase_timer("video decode"):
+                video = load_video(
+                    video_path, max_frames,
+                    dtype=np.uint8 if uint8_upload else np.float32,
+                    resize_to=self.cfg.image_size if host_resize else None)
+            with phase_timer("mesh load+sample"):
+                mesh = load_mesh(mesh_path)
+                inputs, _, norm_mesh = prepare_mesh_inputs(mesh,
+                                                           num_shape_samples)
+            # predict hands the trajectories back on the host: its end is
+            # the device's
+            with phase_timer("model predict"):
+                trajs = self.predict(inputs, video, self._seg_mode(
+                    use_segmentation, segmentation_params), segmentation_params)
+            if smooth:
+                with phase_timer("smoothing"):
+                    trajs = smooth_trajectories(trajs, method="combined",
+                                                motion_threshold=0.002,
+                                                sigma=1.0)
+            out_path = os.path.join(output_dir, "output_animation.glb")
+            if self.writer:
+                with phase_timer("glb export"):
+                    self._export(out_path, trajs[0], norm_mesh, fps)
         return out_path
 
     def run_batch(self, jobs, output_dir: str, num_shape_samples: int = 16384,

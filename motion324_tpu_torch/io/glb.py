@@ -28,6 +28,7 @@ from typing import Any
 import numpy as np
 
 from motion324_tpu_torch.io.png import decode_png, encode_png
+from motion324_tpu_torch.utils.profiling import span
 
 __all__ = ["load_glb", "export_glb", "export_animated_glb", "load_animated_glb"]
 
@@ -424,21 +425,25 @@ def export_animated_glb(path: str, vertices, faces, trajectories, fps: int = 12,
     trajectories = np.asarray(trajectories, np.float32)
     t_frames = trajectories.shape[0]
     b = _BinBuilder()
-    gltf, prim = _base_mesh_json(b, vertices, faces, uv, texture, vertex_colors)
+    # the base mesh's accessors and the texture (encoded, or a cache hit)
+    with span("export.glb.texture"):
+        gltf, prim = _base_mesh_json(b, vertices, faces, uv, texture,
+                                     vertex_colors)
 
-    targets = []
-    base = np.asarray(vertices, np.float32)
-    for t in range(t_frames):
-        disp = trajectories[t] - base
-        targets.append({"POSITION": b.add(disp, "VEC3", 5126, target=34962,
-                                          minmax=True)})
-    prim["targets"] = targets
+    with span("export.glb.targets"):
+        targets = []
+        base = np.asarray(vertices, np.float32)
+        for t in range(t_frames):
+            disp = trajectories[t] - base
+            targets.append({"POSITION": b.add(disp, "VEC3", 5126,
+                                              target=34962, minmax=True)})
+        prim["targets"] = targets
 
-    times = (np.arange(t_frames, dtype=np.float32) / float(fps))
-    time_acc = b.add(times, "SCALAR", 5126, minmax=True)
-    weights = np.zeros((t_frames, t_frames), np.float32)
-    np.fill_diagonal(weights, 1.0)
-    weights_acc = b.add(weights.reshape(-1), "SCALAR", 5126)
+        times = (np.arange(t_frames, dtype=np.float32) / float(fps))
+        time_acc = b.add(times, "SCALAR", 5126, minmax=True)
+        weights = np.zeros((t_frames, t_frames), np.float32)
+        np.fill_diagonal(weights, 1.0)
+        weights_acc = b.add(weights.reshape(-1), "SCALAR", 5126)
 
     gltf.update({
         "scene": 0,
@@ -455,4 +460,5 @@ def export_animated_glb(path: str, vertices, faces, trajectories, fps: int = 12,
         "bufferViews": b.views,
         "accessors": b.accessors,
     })
-    _write_glb(path, gltf, b"".join(b.parts))
+    with span("export.glb.write"):
+        _write_glb(path, gltf, b"".join(b.parts))

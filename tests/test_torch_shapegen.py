@@ -466,6 +466,42 @@ def test_pipeline_call_gives_a_mesh_and_counts_chunks(pipes):
     assert np.isfinite(flat.vertices).all()
 
 
+def test_stages_record_their_span_tree(pipes, monkeypatch):
+    """With spans on, ``denoise`` is one root with a ``shape.denoise.step``
+    child a step; ``__call__``'s five stages are roots whose host seconds
+    are ``last_run["seconds"]``, the stage methods' spans inside them."""
+    from motion324_tpu_torch.utils import profiling
+    _, tp = pipes
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    profiling.reset()
+    rng = np.random.default_rng(11)
+    lat = rng.standard_normal((1, DIMS["num_latents"], DIMS["latent_dim"]))
+    tp.denoise(lat.astype(np.float32), _cond(None, rng), flow_match_sigmas(4),
+               5.0)
+    recs = profiling.spans()
+    root, = [r for r in recs if r.parent is None]
+    assert root.name == "shape.denoise"
+    assert [(r.name, r.parent, r.root) for r in recs if r is not root] == \
+        [("shape.denoise.step", root.id, root.id)] * 4
+    assert all(root.start_ns <= r.start_ns <= r.end_ns <= root.end_ns
+               for r in recs)
+    profiling.reset()
+    img = rng.random((40, 30, 4)).astype(np.float32)
+    tp(img, num_inference_steps=3, octree_resolution=16, num_chunks=512,
+       recenter=False)
+    recs = profiling.spans()
+    roots = sorted((r for r in recs if r.parent is None), key=lambda r: r.id)
+    stages = ["conditioner", "denoise", "vae_decode", "volume_decode",
+              "marching_cubes"]
+    assert [r.name for r in roots] == [f"shape.call.{k}" for k in stages]
+    assert tp.last_run["seconds"] == {k: r.host_s for k, r in zip(stages, roots)}
+    kids = {r.name: r.parent for r in recs if r.parent is not None}
+    assert kids["shape.encode_cond"] == roots[0].id
+    assert kids["shape.denoise"] == roots[1].id
+    assert kids["shape.vae_decode"] == roots[2].id
+    assert sum(r.name == "shape.denoise.step" for r in recs) == 3
+
+
 def test_pipeline_refuses_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

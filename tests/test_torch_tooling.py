@@ -1,6 +1,6 @@
 """The port's tooling against the JAX package's, on the CPU: the
-environment-gated phase timers (their report, the device sync, the
-torch.profiler trace, their use in ``MotionPipeline.run``), the three debug
+environment-gated spans and phase timers (their report, the device sync,
+the torch.profiler trace, the span tree of ``MotionPipeline.run``), the three debug
 visualisations, ``write_video``, the ``images2video`` CLI and the native
 ``build_hierarchy``, bit for bit against the JAX package's.
 """
@@ -43,32 +43,64 @@ def test_phase_timer_and_timed_report_as_the_jax_ones(monkeypatch, capsys):
     monkeypatch.setattr(profiling, "_sync", lambda tree: synced.append(tree))
     x = torch.ones(3)
     with profiling.phase_timer("stage", sync=[x]):
-        pass
-    double = profiling.timed("double")(lambda a: a * 2)
-    assert torch.equal(double(x), 2 * x)
+        with profiling.span("inner"):
+            pass
     got = capsys.readouterr().out
     with jax_profiling.phase_timer("stage"):
         pass
-    jax_profiling.timed("double")(lambda a: a * 2)(np.ones(3))
     want = capsys.readouterr().out
-    assert _timer_lines(got) == _timer_lines(want) == [
-        "[motion324 timer] stage", "[motion324 timer] double"]
+    assert _timer_lines(got) == _timer_lines(want) == ["[motion324 timer] stage"]
     assert all(ln.endswith(" ms") for ln in got.splitlines())
-    assert len(synced) == 2 and torch.equal(synced[1], 2 * x)
+    assert len(synced) == 1 and synced[0][0] is x
 
 
 def test_profile_trace_writes_a_chrome_trace(monkeypatch, tmp_path):
+    """``MOTION324_TRACE_DIR``: one trace a traced root span (its phases and
+    the gaps between them), none for a phase alone or inside a profiler
+    that is already running."""
     monkeypatch.setattr(profiling, "_ENABLED", True)
     monkeypatch.setattr(profiling, "_TRACE_DIR", str(tmp_path / "traced"))
-    with profiling.phase_timer("traced"):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+    with profiling.phase_timer("phase alone"):
+        torch.ones(8).sum()
+    with profiling.span("motion.run", trace=True):
+        with profiling.phase_timer("traced phase"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+        with profiling.span("motion.run", trace=True):   # not a root
+            torch.ones(8).sum()
     with profiling.profile_trace(str(tmp_path / "explicit")):
         torch.ones(8).sum()
+        with profiling.span("motion.run", trace=True):
+            torch.ones(8).sum()
     for sub in ("traced", "explicit"):
         files = os.listdir(tmp_path / sub)
         assert len(files) == 1 and files[0].endswith(".json")
         with open(tmp_path / sub / files[0]) as f:
             assert json.load(f)["traceEvents"]
+    with open(tmp_path / "traced" / os.listdir(tmp_path / "traced")[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"motion.run", "traced phase"} <= names
+    assert "phase alone" not in names
+
+
+def test_spans_off_record_nothing_and_open_no_range(monkeypatch, tmp_path):
+    """Unset, a span and a phase timer record nothing and open no profiler
+    range; a span asked for its seconds measures them all the same."""
+    from torch.profiler import profile
+    from motion324_tpu_torch.io.glb import export_animated_glb
+    monkeypatch.setattr(profiling, "_ENABLED", False)
+    profiling.reset()
+    with profile() as prof:
+        with profiling.phase_timer("video decode"), profiling.span("inner"):
+            torch.ones(8).sum()
+        with profiling.span("asked", timed=True) as asked:
+            torch.ones(8).sum()
+        export_animated_glb(str(tmp_path / "a.glb"), np.zeros((3, 3)),
+                            np.array([[0, 1, 2]]), np.ones((2, 3, 3)))
+    assert profiling.spans() == []
+    names = {e.name for e in prof.events()}
+    assert not names & {"video decode", "inner", "asked", "export.glb.texture",
+                        "export.glb.targets", "export.glb.write"}
+    assert asked.seconds > 0
 
 
 def test_motion_pipeline_run_times_its_phases(monkeypatch, capsys, tmp_path):
@@ -87,6 +119,48 @@ def test_motion_pipeline_run_times_its_phases(monkeypatch, capsys, tmp_path):
     names = [ln.split("] ")[1] for ln in _timer_lines(capsys.readouterr().out)]
     assert names == ["video decode", "mesh load+sample", "model predict",
                      "smoothing", "glb export"]
+
+
+def test_motion_pipeline_run_records_its_span_tree(monkeypatch, tmp_path):
+    """With spans on, one ``MotionPipeline.run`` is one ``motion.run`` root
+    whose children are the five phases; ``model predict`` holds the shape
+    encoding and, for each window, the mask, the video encoding, one
+    ``predict.decode_points`` a decode chunk and the copy to the host; the
+    video decode and the GLB export hold their sub-spans."""
+    from motion324_tpu_torch.config import ModelConfig
+    from motion324_tpu_torch.inference.pipeline import MotionPipeline
+    from motion324_tpu_torch.inference.windowing import window_starts
+    from motion324_tpu_torch.io.mesh import load_mesh
+    from test_torch_pipeline import SMALL
+    monkeypatch.setattr(profiling, "_ENABLED", True)
+    monkeypatch.setattr(profiling, "_TRACE_DIR", None)
+    pipe = MotionPipeline(ModelConfig(**SMALL), window=3, decode_chunk=16,
+                          device="cpu")
+    mesh = os.path.join(ROOT, "blob.glb")
+    profiling.reset()
+    pipe.run(mesh, os.path.join(ROOT, "blob.mp4"), str(tmp_path),
+             num_shape_samples=64, max_frames=4)
+    recs = sorted(profiling.spans(), key=lambda r: r.start_ns)
+    root, = [r for r in recs if r.parent is None]
+    assert root.name == "motion.run" and all(r.root == root.id for r in recs)
+    by_id = {r.id: r for r in recs}
+    assert all(by_id[r.parent].start_ns <= r.start_ns <= r.end_ns
+               <= by_id[r.parent].end_ns for r in recs if r is not root)
+
+    def kids(name):
+        parent, = [r for r in recs if r.name == name]
+        return [r.name for r in recs if r.parent == parent.id]
+    assert kids("motion.run") == ["video decode", "mesh load+sample",
+                                  "model predict", "smoothing", "glb export"]
+    chunks = -(-len(load_mesh(mesh).vertices) // 16)
+    window = (["predict.segment", "predict.encode_video"]
+              + ["predict.decode_points"] * chunks + ["predict.to_host"])
+    assert kids("model predict") == ["predict.encode_shape"] + window * len(
+        window_starts(4, 3))
+    assert kids("video decode") == ["video.load"]
+    assert kids("glb export") == ["export.glb.coords", "export.glb.texture",
+                                  "export.glb.targets", "export.glb.write"]
+    assert all(r.device_s == r.host_s for r in recs)
 
 
 def _trajs(seed, t=5, n=300):
