@@ -136,6 +136,13 @@ Phases, each of which raises on failure (exit code non-zero):
    ViT-bigG-14 and DreamSim's real_ensemble at release width with seeded
    random towers, each timed.
 
+16. smoothing (after the K9 kernels): the trajectory smoothing kernel on a
+   clip's (1, 256, 20 164, 3) field, each method against its plain
+   version and the host route (numpy smoothing and the Blender remap),
+   within an ulp (the freeze and the remap bit for bit), one launch a
+   call, timed beside its bound, the plain version, the host route and
+   the copy to pinned host memory.
+
 The kernel phase also holds K7 at the three turbo shapes (on the paint
 path's positions and on random surface positions, with their pair and
 tile densities and K7's pre-pass bit for bit against its plain version),
@@ -194,6 +201,7 @@ REPLACES = {
     "short_fwd": "motion324_tpu/ops/short_attention.py:53",
     "short_fwd_lse": "motion324_tpu/ops/short_attention.py:53",
     "short_bwd": "motion324_tpu/ops/short_attention.py:71",
+    "smooth_traj": "none (the JAX package smooths on the host in numpy)",
 }
 SOURCES = {"flash_fwd_lse": "flash_fwd", "flash_bwd_fused": "flash_bwd",
            "flash_bwd_two_pass": "flash_bwd", "folded_fwd_lse": "folded_fwd",
@@ -2161,6 +2169,83 @@ def k8_rows(torch, renderer, cases, seed: int) -> tuple[list, list]:
         if not n:
             problems.append(f"the bit-for-bit check misses: {name}")
     return rows, problems
+
+
+def ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """The largest distance in f32 ulps between two f32 arrays (+0 and -0
+    one value)."""
+    def ordered(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(np.abs(ordered(a) - ordered(b)).max())
+
+
+def phase_smoothing(torch, seed: int) -> list[dict]:
+    """The smoothing kernel (``ops/smooth_traj.py``) on a clip's field, (1,
+    256, 20 164, 3) f32, a seeded walk whose steps lie on both sides of the
+    threshold: each method against the plain version (on the card) and the
+    host route (numpy ``smooth_trajectories`` + ``to_blender_coords``), one
+    launch a call; ``combined`` timed beside its bound (the field read and
+    written once), the plain version, the host route and the copy of the
+    result into pinned host memory. Returns the row."""
+    from motion324_tpu_torch.inference.pipeline import SMOOTHING, to_blender_coords
+    from motion324_tpu_torch.inference.smoothing import smooth_trajectories
+    from motion324_tpu_torch.ops import smooth_traj as st
+    rng = np.random.default_rng(seed)
+    b, t, n = 1, 256, 20164
+    thr = SMOOTHING["motion_threshold"]
+    direction = rng.normal(size=(b, t, n, 3))
+    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
+    size = np.choose(rng.integers(0, 4, (b, t, n, 1)), [
+        np.zeros((b, t, n, 1)), rng.uniform(0, 0.5, (b, t, n, 1)),
+        rng.uniform(0.9, 1.1, (b, t, n, 1)), rng.uniform(2, 20, (b, t, n, 1))])
+    a = (rng.normal(size=(b, 1, n, 3)) * 0.3
+         + np.cumsum(direction * size * thr, axis=1)).astype(np.float32)
+    x = torch.from_numpy(a).cuda()
+    still = float((np.linalg.norm(np.diff(a, axis=1), axis=-1) < thr).mean())
+    problems, worst = [], 0.0
+    for method in st.METHODS:
+        before = st.smooth_traj.launches
+        got = st.smooth_traj(x, method, thr, SMOOTHING["sigma"]).cpu().numpy()
+        plain = st.smooth_traj_reference(x, method, thr,
+                                         SMOOTHING["sigma"]).cpu().numpy()
+        host = to_blender_coords(a if method == "none" else smooth_trajectories(
+            a, method, motion_threshold=thr, sigma=SMOOTHING["sigma"]))
+        d_plain, d_host = ulps(got, plain), ulps(got, host)
+        worst = max(worst, float(np.abs(got - host).max()))
+        log(f"  smooth_traj {method}: ulps against the plain version "
+            f"{d_plain}, against the host route {d_host}; launches "
+            f"{st.smooth_traj.launches - before}")
+        exact = method in ("none", "threshold")
+        if st.smooth_traj.launches != before + 1 or max(d_plain, d_host) > (
+                0 if exact else 1):
+            problems.append(f"smooth_traj {method}: {d_plain} / {d_host} ulps, "
+                            f"{st.smooth_traj.launches - before} launches")
+    run = lambda: st.smooth_traj(x, "combined", thr, SMOOTHING["sigma"])
+    ms = time_ms(torch, run, n=20)
+    plain_ms = time_ms(torch, lambda: st.smooth_traj_reference(
+        x, "combined", thr, SMOOTHING["sigma"]), n=1, reps=3)
+    bound_ms = 2 * a.nbytes / PEAK_BYTES * 1e3
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        to_blender_coords(smooth_trajectories(a, "combined", motion_threshold=thr,
+                                              sigma=SMOOTHING["sigma"]))
+        host_s.append(time.perf_counter() - t0)
+    pinned = torch.empty(a.shape, dtype=torch.float32, pin_memory=True)
+    out = run()
+    copy_ms = time_ms(torch, lambda: pinned.copy_(out, non_blocking=True), n=5)
+    log(f"  smooth_traj combined {b}x{t}x{n}x3 f32 ({still:.3f} of the steps "
+        f"below the threshold): kernel {ms:.4f} ms against its bound "
+        f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%); plain version "
+        f"{plain_ms:.2f} ms; host route median {1e3 * np.median(host_s):.1f} "
+        f"ms; copy to pinned host memory {copy_ms:.3f} ms")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return [dict(kernel="smooth_traj", case=f"clip field {b}x{t}x{n}x3",
+                 dtype="float32", main=True, max_abs_err=worst, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                 library_ms=None)]
 
 
 def phase_raster(torch, seed: int) -> list[dict]:
@@ -4427,6 +4512,8 @@ def main(argv=None) -> int:
     header("K9 (short attention, forward and backward) against its plain "
            "versions")
     rows += phase_short_kernels(torch, args.seed)
+    header("the smoothing kernel against its plain version and the host route")
+    rows += phase_smoothing(torch, args.seed)
     header("main path: MotionPipeline.run, release width, bf16")
     evaluation: dict = {}
     launches = phase_pipeline(torch, args.seed, repo, evaluation)
@@ -4473,7 +4560,9 @@ def main(argv=None) -> int:
 
     kernels = []
     for r in rows:
-        if not (r["main"] and r["dtype"] in ("bfloat16", "int32")):
+        # the smoothing kernel's field is f32 on the main path
+        if not (r["main"] and (r["dtype"] in ("bfloat16", "int32")
+                               or r["kernel"] == "smooth_traj")):
             continue
         kernels.append({
             "name": f"{r['kernel']}/{r['case']}", "route": "cuda",

@@ -11,14 +11,17 @@ The ``4D_from_existing`` product path:
 3. run :class:`MotionLatentModel` over sliding windows: the shape is encoded
    once and reused by every window, then each window is video-encoded and
    decoded in chunks of vertices;
-4. smooth the trajectories, remap (x, y, z) -> (x, -z, y) for Blender and
-   write the animated GLB (morph targets).
+4. smooth the trajectories and remap (x, y, z) -> (x, -z, y) for Blender
+   where they are, on the card (``ops/smooth_traj.py``: one kernel launch
+   for the clips of a forward); copy them to the host once, into a pinned
+   buffer the pipeline keeps; write the animated GLB (morph targets).
 
 :meth:`MotionPipeline.predict_batch` runs B clips of one shape through each
 window in one forward, and :meth:`MotionPipeline.run_batch` groups a list
 of jobs by shape for it (the ``long_videos.txt`` batch runner,
 :mod:`motion324_tpu_torch.batch_inference`). Trajectories are read back as
-exact f32.
+exact f32: ``predict`` and ``predict_batch`` return them raw on the host;
+``run`` and ``run_batch`` keep them on the device until they are finished.
 
 ``MotionPipeline(..., parallel="tp" | "sp", mesh=...)`` runs one process
 per card (counterpart of the JAX pipeline's ``mesh=`` / ``parallel=``);
@@ -53,13 +56,13 @@ from motion324_tpu_torch import resolve_device
 from motion324_tpu_torch.config import ModelConfig
 from motion324_tpu_torch.inference.segmentation import (
     U2Net, load_segmentation_state_dict)
-from motion324_tpu_torch.inference.smoothing import smooth_trajectories
 from motion324_tpu_torch.inference.windowing import sliding_window_predict
 from motion324_tpu_torch.io.glb import export_animated_glb
 from motion324_tpu_torch.io.mesh import (TriMesh, load_mesh, nearest_colors,
                                          normalize_unit_cube,
                                          sample_with_albedo, vertex_normals)
 from motion324_tpu_torch.models.motion_model import MotionLatentModel
+from motion324_tpu_torch.ops.smooth_traj import smooth_traj
 from motion324_tpu_torch.parallel.collectives import all_gather_seq
 from motion324_tpu_torch.parallel.distributed import is_initialized
 from motion324_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -71,6 +74,8 @@ __all__ = ["MotionPipeline", "prepare_mesh_inputs", "load_video",
            "resize_frames", "to_blender_coords", "build_u2net"]
 
 DECODE_CHUNK = 4096  # vertices decoded per call
+# the shipped smoothing (scripts/inference_with_video_mesh.py:395-405)
+SMOOTHING = dict(method="combined", motion_threshold=0.002, sigma=1.0)
 
 
 def resize_frames(video: np.ndarray, size: int) -> np.ndarray:
@@ -230,6 +235,7 @@ class MotionPipeline:
         self.seg_net = (None if seg_params is None
                         else build_u2net(seg_params, self.device))
         self._call_seg = None   # (params, network) of the last call's weights
+        self._host_buf = None   # pinned f32, reused by each finished field
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
@@ -283,6 +289,15 @@ class MotionPipeline:
         windows run over the time-major video ``(T, B, H, W, 3)``, so that
         each window is one ``(B, T_w, ...)`` forward.
         """
+        field = self._predict_field(inputs, videos, segment, seg_params)
+        with span("predict.to_host"):
+            return field.cpu().numpy()
+
+    @torch.inference_mode()
+    def _predict_field(self, inputs, videos: np.ndarray, segment=False,
+                       seg_params=None) -> torch.Tensor:
+        """:meth:`predict_batch`'s trajectories where the model made them:
+        a ``(B, T, N, 3)`` f32 tensor on the pipeline's device."""
         if segment not in (False, None, True, "border", "u2net"):
             raise ValueError(f"segment must be False, True, 'border' or "
                              f"'u2net', not {segment!r}")
@@ -315,17 +330,37 @@ class MotionPipeline:
                 with span("predict.decode_points"):
                     parts.append(m.decode_points(
                         tokens, *(p[:, i:i + self.decode_chunk] for p in pts)))
-            with span("predict.to_host"):
-                out = all_gather_seq(torch.cat(parts, dim=2), 1, sp)
-                return out.cpu().numpy()
+            return all_gather_seq(torch.cat(parts, dim=2), 1, sp)
 
         return sliding_window_predict(forward, np.swapaxes(videos, 0, 1),
                                       self.window, inputs["ref_pcd"])
 
+    @torch.inference_mode()
+    def _finish(self, field: torch.Tensor, smooth: bool) -> np.ndarray:
+        """The ``(B, T, N, 3)`` field smoothed as shipped (:data:`SMOOTHING`)
+        where ``smooth``, in Blender axes, where it lies (one launch of the
+        smoothing kernel on the card), then on the host: a view of the
+        pipeline's pinned buffer on the card, valid until the next call."""
+        out = smooth_traj(field.contiguous(),
+                          SMOOTHING["method"] if smooth else "none",
+                          SMOOTHING["motion_threshold"], SMOOTHING["sigma"])
+        with span("smoothing.to_host"):
+            if out.device.type != "cuda":
+                return out.numpy()
+            buf = self._host_buf
+            if buf is None or buf.numel() < out.numel():
+                buf = self._host_buf = torch.empty(out.numel(),
+                                                   dtype=out.dtype,
+                                                   pin_memory=True)
+            host = buf[:out.numel()].view(out.shape)
+            host.copy_(out, non_blocking=True)
+            torch.cuda.current_stream(out.device).synchronize()
+            return host.numpy()
+
     def _export(self, out_path: str, trajs: np.ndarray, norm_mesh, fps: int):
+        """``trajs``: ``(T, N, 3)`` in Blender axes (:meth:`_finish`)."""
         with span("export.glb.coords"):
             verts = to_blender_coords(norm_mesh.vertices)
-            trajs = to_blender_coords(trajs)
         export_animated_glb(out_path, verts, norm_mesh.faces, trajs, fps=fps,
                             uv=norm_mesh.uv, texture=norm_mesh.texture,
                             vertex_colors=norm_mesh.vertex_colors)
@@ -349,6 +384,9 @@ class MotionPipeline:
         ``uint8_upload`` quantizes the video to uint8 before it goes to the
         device (at most 1/510 per pixel); ``host_resize`` resizes frames to
         the model's input size on the host instead of in the model.
+        ``smooth`` applies the shipped smoothing (:data:`SMOOTHING`) on the
+        device; the "smoothing" phase holds it (or, without it, the Blender
+        remap alone) and the one copy of the trajectories to the host.
         """
         os.makedirs(output_dir, exist_ok=True)
         with span("motion.run", trace=True):
@@ -361,16 +399,16 @@ class MotionPipeline:
                 mesh = load_mesh(mesh_path)
                 inputs, _, norm_mesh = prepare_mesh_inputs(mesh,
                                                            num_shape_samples)
-            # predict hands the trajectories back on the host: its end is
-            # the device's
-            with phase_timer("model predict"):
-                trajs = self.predict(inputs, video, self._seg_mode(
-                    use_segmentation, segmentation_params), segmentation_params)
-            if smooth:
-                with phase_timer("smoothing"):
-                    trajs = smooth_trajectories(trajs, method="combined",
-                                                motion_threshold=0.002,
-                                                sigma=1.0)
+            # the field stays on the device: the phase ends where the
+            # device's work ends
+            field = []
+            with phase_timer("model predict", sync=field):
+                field.append(self._predict_field(
+                    inputs, video[None], self._seg_mode(
+                        use_segmentation, segmentation_params),
+                    segmentation_params))
+            with phase_timer("smoothing"):
+                trajs = self._finish(field.pop(), smooth)
             out_path = os.path.join(output_dir, "output_animation.glb")
             if self.writer:
                 with phase_timer("glb export"):
@@ -418,14 +456,11 @@ class MotionPipeline:
                             for k in loaded[idxs[0]][0]}
             videos = np.stack([loaded[i][2] for i in idxs])
             t0 = time.perf_counter()
-            trajs = self.predict_batch(batch_inputs, videos, segment,
-                                       segmentation_params)
+            trajs = self._finish(self._predict_field(
+                batch_inputs, videos, segment, segmentation_params), smooth)
             dt = time.perf_counter() - t0
             log(f"batch predict: {len(idxs)} clips x {key[0][0]} frames in "
                 f"{dt:.2f} s ({len(idxs) / dt:.2f} clips/s)")
-            if smooth:
-                trajs = smooth_trajectories(trajs, method="combined",
-                                            motion_threshold=0.002, sigma=1.0)
             for bi, i in enumerate(idxs):
                 _, norm_mesh, _, stem = loaded[i]
                 clip_dir = os.path.join(output_dir, stem)

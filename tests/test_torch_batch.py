@@ -177,12 +177,12 @@ def test_run_batch_groups_by_shape_and_writes_glbs(pipelines, weights,
     tp = MotionPipeline(ModelConfig(**SMALL), state_dict=params_from_jax(weights),
                         window=3, decode_chunk=16, device="cpu")
     sizes = []
-    real = tp.predict_batch
+    real = tp._predict_field    # a group's forward, its field on the device
 
     def spy(inputs, videos, *a):
         sizes.append((len(videos), inputs["ref_pcd"].shape[1]))
         return real(inputs, videos, *a)
-    tp.predict_batch = spy
+    tp._predict_field = spy
     paths = tp.run_batch(jobs, str(tmp_path / "port"), num_shape_samples=64,
                          max_frames=7)
     assert sorted(sizes) == [(1, 6), (2, 162)]

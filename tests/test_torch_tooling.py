@@ -124,9 +124,10 @@ def test_motion_pipeline_run_times_its_phases(monkeypatch, capsys, tmp_path):
 def test_motion_pipeline_run_records_its_span_tree(monkeypatch, tmp_path):
     """With spans on, one ``MotionPipeline.run`` is one ``motion.run`` root
     whose children are the five phases; ``model predict`` holds the shape
-    encoding and, for each window, the mask, the video encoding, one
-    ``predict.decode_points`` a decode chunk and the copy to the host; the
-    video decode and the GLB export hold their sub-spans."""
+    encoding and, for each window, the mask, the video encoding and one
+    ``predict.decode_points`` a decode chunk; ``smoothing`` holds the one
+    copy of the finished field to the host; the video decode and the GLB
+    export hold their sub-spans."""
     from motion324_tpu_torch.config import ModelConfig
     from motion324_tpu_torch.inference.pipeline import MotionPipeline
     from motion324_tpu_torch.inference.windowing import window_starts
@@ -154,9 +155,10 @@ def test_motion_pipeline_run_records_its_span_tree(monkeypatch, tmp_path):
                                   "model predict", "smoothing", "glb export"]
     chunks = -(-len(load_mesh(mesh).vertices) // 16)
     window = (["predict.segment", "predict.encode_video"]
-              + ["predict.decode_points"] * chunks + ["predict.to_host"])
+              + ["predict.decode_points"] * chunks)
     assert kids("model predict") == ["predict.encode_shape"] + window * len(
         window_starts(4, 3))
+    assert kids("smoothing") == ["smoothing.to_host"]
     assert kids("video decode") == ["video.load"]
     assert kids("glb export") == ["export.glb.coords", "export.glb.texture",
                                   "export.glb.targets", "export.glb.write"]
