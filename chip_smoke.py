@@ -453,6 +453,57 @@ def phase_kernels(torch, seed: int) -> list[dict]:
     return rows
 
 
+def phase_kernels_d128(torch, seed: int) -> list[dict]:
+    """K1 at head dim 128 (bf16, no LSE), the Hunyuan3D-2.1 DiT's heads:
+    its self-attention (2 x 16 heads over 4 097 tokens) and cross-attention
+    (4 097 queries over 1 370 condition tokens), a ragged row and a split
+    one, each within 2^-6 of max|plain| (a dropped 64-key tile outside
+    it), timed beside the plain version, SDPA and the bound (4 b h sq sk
+    128 flops, or q, k, v, o once)."""
+    import torch.nn.functional as F
+    from motion324_tpu_torch.ops import flash_attention as fa
+    from motion324_tpu_torch.ops.flash_attention import (
+        flash_attention_reference, scale_in_dtype, split_count)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = [("dit21_self", 2, 16, 4097, 4097), ("dit21_cross", 2, 16, 4097, 1370),
+             ("ragged", 1, 16, 1000, 1296), ("split", 2, 16, 64, 4096)]
+    rows = []
+    for case, b, h, sq, sk in cases:
+        q, k, v = (torch.randn(b, n, h, 128, generator=gen, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2) for n in (sq, sk, sk))
+        run = lambda: fa._forward_k1(q, k, v, scale_in_dtype(q, None), False)[0]
+        plain = lambda: flash_attention_reference(q, k, v)
+        out, want = run(), plain()
+        err, top = rel_err(out, want)
+        tol = REL_TOL["bfloat16"] * top
+        miss = rel_err(flash_attention_reference(q, k[:, :, :-64], v[:, :, :-64]),
+                       want)[0]
+        if not (err <= tol < miss):
+            raise AssertionError(f"K1 d128 {case}: max |kernel - plain| {err:.3e}, "
+                                 f"tol {tol:.3e}, a dropped KV tile {miss:.3e}")
+        ms = time_ms(torch, run)
+        plain_ms = time_ms(torch, plain, n=3, reps=3)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+        names = [n for n in device_ms(torch, run) if "k1_flash_fwd_d128" in n]
+        t_ops = 4.0 * b * h * sq * sk * 128 / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = 2.0 * b * h * 128 * (2 * sq + 2 * sk) / PEAK_BYTES * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        log(f"  flash_fwd_d128  {case:13s} bfloat16 B{b} H{h} Sq{sq} Sk{sk} "
+            f"n_split {split_count(sq, sk)}: max|d| {err:.2e} (tol {tol:.2e}; "
+            f"last KV tile dropped {miss:.2e}) kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
+            f"{100 * bound_ms / ms:.1f}%); kernels {names}")
+        rows.append(dict(kernel="flash_fwd_d128", case=case, dtype="bfloat16",
+                         main=case.startswith("dit21"), max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by="operations" if t_ops >= t_bytes else "bytes"))
+        del q, k, v, out, want
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_digests(torch) -> None:
     """Print a digest of K1's and K9's bf16 out and LSE at fixed inputs (a
     split and an unsplit call each, with and without the LSE): a change
@@ -4504,6 +4555,7 @@ def main(argv=None) -> int:
     phase_build()
     header("kernels against their plain versions")
     rows = phase_kernels(torch, args.seed)
+    rows += phase_kernels_d128(torch, args.seed)
     header("training kernels (LSE forwards, backwards) against their plain "
            "versions")
     rows += phase_grad_kernels(torch, args.seed)

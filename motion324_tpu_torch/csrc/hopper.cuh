@@ -62,14 +62,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// TMA: one box of a 4-D tensor map (64, S, H, B) into shared memory
+// TMA: one box of a 4-D tensor map (D, S, H, B) into shared memory, its
+// first column at `col` (0 but for the second 64-column panel of a
+// 128-wide row)
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int row, int head,
-                                         int batch) {
+                                         int batch, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0),
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
          "r"(row), "r"(head), "r"(batch)
       : "memory");
 }
@@ -277,13 +279,15 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (64, rows, H, B) bf16 tensor map with 128-byte swizzle and a box of
-// (64, box_rows, 1, 1); strides in elements. Returns 0 or an error code.
+// A (cols, rows, H, B) bf16 tensor map with 128-byte swizzle and a box of
+// (64, box_rows, 1, 1): a row of 128 columns is two boxes, one a 64-column
+// panel; strides in elements. Returns 0 or an error code.
 inline int make_map(CUtensorMap* map, const void* ptr, int rows, int h, int b,
-                    long long bs, long long hs, long long rs, int box_rows) {
+                    long long bs, long long hs, long long rs, int box_rows,
+                    int cols = kD) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return 900;    // no driver entry point
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(rows),
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                         static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
   cuuint64_t strides[3] = {static_cast<cuuint64_t>(rs) * 2,
                            static_cast<cuuint64_t>(hs) * 2,

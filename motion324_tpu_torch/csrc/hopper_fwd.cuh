@@ -1,6 +1,6 @@
 // The Hopper (sm_90a) attention forward shared by K1 (flash_fwd.cu), the
 // K9 forward (short_fwd.cu), K2 (folded_fwd.cu) and K7 (masked_flash.cu):
-// exact attention over (B, H, S, 64) with an online softmax over KV tiles,
+// exact attention over (B, H, S, D) with an online softmax over KV tiles,
 // the logit scale folded into q in q's dtype, padded keys masked to -1e30,
 // m / l / acc in f32, P rounded to v's dtype before P V and the output in
 // q's dtype; optionally the f32 natural-log log-sum-exp of each row through
@@ -8,6 +8,16 @@
 // for K2), the residual the backward passes read. Each library instantiates
 // the kernels with a tag type of its own (fwd_entry<Tag>), so that a
 // profile tells their launches apart.
+//
+// The tag also sets the head dim D: 64, or the tag's kHeadDim (128 for
+// K1's k1_flash_fwd_d128, bf16 without the LSE). A 128-wide row is two
+// 64-column panels, each a TMA box of 128-byte rows in the 128-byte
+// swizzle, so every tile convention of hopper.cuh holds panel by panel:
+// S = Q K^T adds the two panels' 4 k-steps each, and O is two 64-column
+// accumulators, each P V over its panel of V. At D = 128 a K or V tile is
+// 32 KB and the ring holds 2 stages (Q 32 KB + 128 KB of K/V); at D = 64
+// every constant, and so the code, is what it was before D was a
+// parameter.
 //
 // The tag also sets the tile policy. A tag derived from VoxelTiles (K7)
 // visits only the key tiles that its 128-row query tile's flags list (a
@@ -56,10 +66,9 @@ namespace m324 {
 namespace fwd {
 
 constexpr int kBlockN = 128;                    // keys per K/V tile
-constexpr int kStages = 3;                      // K/V tiles in flight
-constexpr int kTileBytes = kBlockN * kD * 2;    // one K or V tile: 16 KB
 constexpr int kMaxSplits = 16;                  // the wrapper's rule keeps to it
 constexpr int kMaskTile = 128;                  // rows and keys of a mask flag
+constexpr int kPanelCols = 64;                  // columns of a 128-byte row
 
 // The tile policy: a tag derived from VoxelTiles visits the listed key
 // tiles only and applies the mask bits (K7); any other tag is dense.
@@ -67,14 +76,41 @@ struct VoxelTiles {};
 template <typename Tag>
 constexpr bool kTileMasked = std::is_base_of<VoxelTiles, Tag>::value;
 
+// The head dim of a tag's kernels: the tag's kHeadDim, else kD (64)
+template <typename Tag, typename = void>
+struct HeadDimOf { static constexpr int value = kD; };
+template <typename Tag>
+struct HeadDimOf<Tag, std::void_t<decltype(Tag::kHeadDim)>> {
+  static constexpr int value = Tag::kHeadDim;
+};
+template <typename Tag>
+constexpr int kHeadDim = HeadDimOf<Tag>::value;
+
+// What the head dim sets: 64-column panels of a row, K/V tiles in flight,
+// the bytes of one K or V tile (16 KB at 64, 32 KB at 128) and of one of
+// its panels
+template <int kDim>
+struct Dim {
+  static_assert(kDim == 64 || kDim == 128, "head dim 64 or 128");
+  static constexpr int kPanels = kDim / kPanelCols;
+  static constexpr int kStages = kDim == 64 ? 3 : 2;
+  static constexpr int kTileBytes = kBlockN * kDim * 2;
+  static constexpr int kPanelBytes = kBlockN * kPanelCols * 2;
+};
+
 // dynamic shared memory of a block with `consumers` consumer warpgroups,
 // as byte offsets from a 1024-byte-aligned base (the 128-byte swizzle
 // repeats every 8 rows of 128 bytes); a masked block adds its list of key
 // tiles (a count, then one int per key tile: launch_bf16 adds 4 q_tiles
-// bytes to kAlloc)
-template <int kConsumers, bool kMasked = false>
+// bytes to kAlloc). Q is kPanels panels of 64 kConsumers rows (panel p at
+// p kQPanelBytes, a consumer's 64 rows at 8 KB steps within it); a K or V
+// stage is kPanels panels of 128 rows.
+template <int kConsumers, bool kMasked = false, int kDim = kD>
 struct Layout {
-  static constexpr int kQBytes = kConsumers * 64 * kD * 2;
+  static constexpr int kStages = Dim<kDim>::kStages;
+  static constexpr int kTileBytes = Dim<kDim>::kTileBytes;
+  static constexpr int kQPanelBytes = kConsumers * 64 * kPanelCols * 2;
+  static constexpr int kQBytes = kConsumers * 64 * kDim * 2;
   static constexpr int kK = kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBar = kV + kStages * kTileBytes;  // q, full[], empty[]
@@ -84,9 +120,9 @@ struct Layout {
 };
 
 struct FwdArgs {
-  bf16* o;            // (B, H, Sq, 64) through o_bs / o_hs / o_rs
+  bf16* o;            // (B, H, Sq, D) through o_bs / o_hs / o_rs
   float* lse;         // (B, H, Sq) through l_bs / l_hs / l_rs, or null
-  float* part_o;      // (n_split, B*H, Sq, 64) f32 when n_split > 1
+  float* part_o;      // (n_split, B*H, Sq, D) f32 when n_split > 1
   float* part_lse;    // (n_split, B*H, Sq) f32 when n_split > 1
   int* tickets;       // one zeroed int per (query tile, slice) when n_split > 1
   long long o_bs, o_hs, o_rs;
@@ -122,7 +158,12 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const FwdArgsOf<Tag> a) {
   constexpr bool kMasked = kTileMasked<Tag>;
-  using L = Layout<kConsumers, kMasked>;
+  constexpr int kDim = kHeadDim<Tag>;
+  constexpr int kPanels = Dim<kDim>::kPanels;
+  constexpr int kPanelBytes = Dim<kDim>::kPanelBytes;
+  using L = Layout<kConsumers, kMasked, kDim>;
+  constexpr int kStages = L::kStages;
+  constexpr int kTileBytes = L::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -174,15 +215,24 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_bar, L::kQBytes);
-      tma_load(base, &tq, q_bar, q0, head, batch);
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p)
+        tma_load(base + p * L::kQPanelBytes, &tq, q_bar, q0, head, batch,
+                 p * kPanelCols);
       for (int it = 0; it < n_tiles; ++it) {
         const int stage = it % kStages;
         mbar_wait(empty_bar + 8 * stage, ((it / kStages) & 1) ^ 1);
         const uint32_t bar = full_bar + 8 * stage;
         mbar_expect_tx(bar, 2 * kTileBytes);
         const int kv0 = kMasked ? list[it] * kBlockN : kv_begin + it * kBlockN;
-        tma_load(base + L::kK + stage * kTileBytes, &tk, bar, kv0, head, batch);
-        tma_load(base + L::kV + stage * kTileBytes, &tv, bar, kv0, head, batch);
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(base + L::kK + stage * kTileBytes + p * kPanelBytes, &tk,
+                   bar, kv0, head, batch, p * kPanelCols);
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(base + L::kV + stage * kTileBytes + p * kPanelBytes, &tv,
+                   bar, kv0, head, batch, p * kPanelCols);
       }
     }
     return;
@@ -196,31 +246,39 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
   const int c = wg - 1;                      // this consumer's 64 query rows
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
   const int g = lane >> 2, tq4 = lane & 3;
-  const uint32_t q_tile = base + c * 64 * kD * 2;
+  // this consumer's 64 rows of Q in panel p: q_tile + p * kQPanelBytes
+  const uint32_t q_tile = base + c * 64 * kPanelCols * 2;
 
   mbar_wait(q_bar, 0);
   if (a.scale != 1.0f) {
     // fold the logit scale into q, rounded to bf16 (element-wise, so the
     // swizzle does not matter), then hand the tile back to the async proxy
-    uint4* qv = reinterpret_cast<uint4*>(smem + c * 64 * kD * 2);
-    for (int i = t; i < 64 * kD / 8; i += 128) {
-      uint4 val = qv[i];
+    // (one loop over the 16-byte chunks of this consumer's rows of every
+    // panel: at D = 64 the loop it always was)
+    uint4* qv = reinterpret_cast<uint4*>(smem + c * 64 * kPanelCols * 2);
+    for (int i = t; i < kPanels * 64 * kPanelCols / 8; i += 128) {
+      // chunk i lies in panel i / 512, a panel's chunks kQPanelBytes apart
+      const int at = kPanels == 1 ? i
+                                  : i + (i >> 9) * (L::kQPanelBytes / 16 - 512);
+      uint4 val = qv[at];
       __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&val);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float2 f = __bfloat1622float2(hv[j]);
         hv[j] = __floats2bfloat162_rn(f.x * a.scale, f.y * a.scale);
       }
-      qv[i] = val;
+      qv[at] = val;
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" :: "r"(1 + c) : "memory");
   }
   const uint64_t q_desc = sw128_desc(q_tile);
 
-  float o[32];
+  float o[kPanels][32];   // output columns 64 p + 0..63
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf;   // running max of rows g and g + 8
   float l0 = 0.f, l1 = 0.f;           // this thread's share of the row sums
 
@@ -231,13 +289,17 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
     const uint64_t v_desc = sw128_desc(base + L::kV + stage * kTileBytes);
     const int kv0 = kMasked ? list[it] * kBlockN : kv_begin + it * kBlockN;
 
-    // S = Q K^T over the head dim, 4 steps of 16 (32 bytes: +2 in the
-    // descriptor's address field)
+    // S = Q K^T over the head dim, 4 steps of 16 a panel (32 bytes: +2 in
+    // the descriptor's address field; a panel's bytes / 16 more for the next
+    // panel)
     float s[64];
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_ss_n128(s, q_desc + 2 * ks, k_desc + 2 * ks, ks > 0);
+    for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss_n128(s, q_desc + p * (L::kQPanelBytes >> 4) + 2 * ks,
+                      k_desc + p * (kPanelBytes >> 4) + 2 * ks, p > 0 || ks > 0);
     wgmma_commit();
     uint4 bits0, bits1;   // the tile's mask words of rows g and g + 8
     if constexpr (kMasked) {
@@ -320,14 +382,17 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
     l0 = l0 * alpha0 + ls0;
     l1 = l1 * alpha1 + ls1;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[4 * j] *= alpha0; o[4 * j + 1] *= alpha0;
-      o[4 * j + 2] *= alpha1; o[4 * j + 3] *= alpha1;
-    }
+    for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[p][4 * j] *= alpha0; o[p][4 * j + 1] *= alpha0;
+        o[p][4 * j + 2] *= alpha1; o[p][4 * j + 3] *= alpha1;
+      }
 
     // O += P V over the 128 keys, 8 steps of 16 (16 V rows: 2 048 bytes,
-    // +128 in the descriptor); P's A fragment of keys 16kk.. is this
-    // thread's S values of columns 2kk and 2kk + 1, rounded to bf16
+    // +128 in the descriptor), each panel of V into its accumulator; P's A
+    // fragment of keys 16kk.. is this thread's S values of columns 2kk and
+    // 2kk + 1, rounded to bf16
     uint32_t p[8][4];
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
@@ -336,13 +401,18 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
       p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
       p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
-    fence_regs(o);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) fence_regs(o[pn]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_rs_n64(o, p[kk], v_desc + 128 * kk);
+    for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_rs_n64(o[pn], p[kk], v_desc + pn * (kPanelBytes >> 4) + 128 * kk);
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(o);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) fence_regs(o[pn]);
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) fence_regs(p[kk]);
     __syncwarp();
@@ -366,32 +436,37 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
       if (r1 < a.sq) lb[r1 * a.l_rs] = lse1;
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 8 * j + 2 * tq4;
-      if (r0 < a.sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * a.o_rs + col) =
-            __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-      if (r1 < a.sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + r1 * a.o_rs + col) =
-            __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-    }
+    for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = p * kPanelCols + 8 * j + 2 * tq4;
+        if (r0 < a.sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + r0 * a.o_rs + col) =
+              __floats2bfloat162_rn(o[p][4 * j] * inv0, o[p][4 * j + 1] * inv0);
+        if (r1 < a.sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + r1 * a.o_rs + col) =
+              __floats2bfloat162_rn(o[p][4 * j + 2] * inv1,
+                                    o[p][4 * j + 3] * inv1);
+      }
   } else {
     const long long row_base = ((long long)split * a.bh + bh) * a.sq;
     if (tq4 == 0) {
       if (r0 < a.sq) a.part_lse[row_base + r0] = lse0;
       if (r1 < a.sq) a.part_lse[row_base + r1] = lse1;
     }
-    float* pb = a.part_o + row_base * kD;
+    float* pb = a.part_o + row_base * kDim;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 8 * j + 2 * tq4;
-      if (r0 < a.sq)
-        *reinterpret_cast<float2*>(pb + (long long)r0 * kD + col) =
-            make_float2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-      if (r1 < a.sq)
-        *reinterpret_cast<float2*>(pb + (long long)r1 * kD + col) =
-            make_float2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-    }
+    for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = p * kPanelCols + 8 * j + 2 * tq4;
+        if (r0 < a.sq)
+          *reinterpret_cast<float2*>(pb + (long long)r0 * kDim + col) =
+              make_float2(o[p][4 * j] * inv0, o[p][4 * j + 1] * inv0);
+        if (r1 < a.sq)
+          *reinterpret_cast<float2*>(pb + (long long)r1 * kDim + col) =
+              make_float2(o[p][4 * j + 2] * inv1, o[p][4 * j + 3] * inv1);
+      }
     // the last of the tile's n_split blocks to finish adds them up
     __threadfence();
     asm volatile("bar.sync 3, %0;\n" :: "r"(kConsumers * 128) : "memory");
@@ -432,15 +507,19 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
       }
       asm volatile("bar.sync 3, %0;\n" :: "r"(kConsumers * 128) : "memory");
       bf16* ob = a.o + batch * a.o_bs + head * a.o_hs;
-      for (int item = tc; item < n_rows * 8; item += kConsumers * 128) {
-        const int r = item >> 3, col = (item & 7) * 8;
+      // 8-column chunks of a row: 8 (64 columns) or 16 (128)
+      constexpr int kChunkBits = kDim == 64 ? 3 : 4;
+      for (int item = tc; item < n_rows << kChunkBits;
+           item += kConsumers * 128) {
+        const int r = item >> kChunkBits;
+        const int col = (item & ((1 << kChunkBits) - 1)) * 8;
         float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int i = 0; i < kMaxSplits; ++i) {
           if (i < a.n_split) {
             const float w = w_s[r * kMaxSplits + i];
             const float4* p = reinterpret_cast<const float4*>(
-                a.part_o + (i * rows + row0 + r) * kD + col);
+                a.part_o + (i * rows + row0 + r) * kDim + col);
             const float4 x = __ldcg(p), y = __ldcg(p + 1);
             acc[0] = fmaf(w, x.x, acc[0]); acc[1] = fmaf(w, x.y, acc[1]);
             acc[2] = fmaf(w, x.z, acc[2]); acc[3] = fmaf(w, x.w, acc[3]);
@@ -479,11 +558,12 @@ template <int kConsumers, typename Tag>
 int launch_bf16(const void* q, const void* k, const void* v, int b, int h,
                 int sq, int sk, const long long* st, const FwdArgsOf<Tag>& a,
                 cudaStream_t s) {
-  using L = Layout<kConsumers, kTileMasked<Tag>>;
+  constexpr int kDim = kHeadDim<Tag>;
+  using L = Layout<kConsumers, kTileMasked<Tag>, kDim>;
   CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, q, sq, h, b, st[0], st[1], st[2], 64 * kConsumers);
-  if (rc == 0) rc = make_map(&tk, k, sk, h, b, st[3], st[4], st[5], kBlockN);
-  if (rc == 0) rc = make_map(&tv, v, sk, h, b, st[6], st[7], st[8], kBlockN);
+  int rc = make_map(&tq, q, sq, h, b, st[0], st[1], st[2], 64 * kConsumers, kDim);
+  if (rc == 0) rc = make_map(&tk, k, sk, h, b, st[3], st[4], st[5], kBlockN, kDim);
+  if (rc == 0) rc = make_map(&tv, v, sk, h, b, st[6], st[7], st[8], kBlockN, kDim);
   if (rc != 0) return rc;
   int smem = L::kAlloc;
   if constexpr (kTileMasked<Tag>) smem += 4 * a.mask.q_tiles;
@@ -501,13 +581,13 @@ int launch_bf16(const void* q, const void* k, const void* v, int b, int h,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q: (b, h, sq, 64), k, v: (b, h, sk, 64), o like q, each through its
+// q: (b, h, sq, D), k, v: (b, h, sk, D), o like q, each through its
 // (batch, head, row) strides in elements (strides[0..11]: q, k, v, o), with
 // unit stride within a row and 16-byte-aligned rows and base.
 // lse: null, or f32 (b, h, sq) through strides[12..14] that receives each
 // row's log-sum-exp.
 // bf16 only: n_split > 1 cuts the keys into n_split ranges of whole
-// 128-key tiles; part_o (n_split, b*h, sq, 64) and part_lse (n_split, b*h,
+// 128-key tiles; part_o (n_split, b*h, sq, D) and part_lse (n_split, b*h,
 // sq), f32, are the workspace of the partial results, and tickets holds
 // n_tickets zeroed ints, at least one per (query tile, slice), which the
 // call leaves zeroed (all null when n_split is 1; a ticket array serves one
@@ -517,6 +597,7 @@ int launch_bf16(const void* q, const void* k, const void* v, int b, int h,
 // cuTensorMapEncodeTiled, 901 for an empty split or more than kMaxSplits
 // splits, 902 for too few tickets,
 // or 1000 + the driver's error when a tensor map is refused.
+// D = 128 (a tag's kHeadDim) takes bf16 without the LSE only; else 901.
 // A masked tag (K7) takes bf16 self-attention only (sq == sk), unsplit,
 // with its pre-pass's `mask`; else 901. Its block holds a list of 4-byte
 // key tiles in shared memory: past about 28 000 tiles (3.6 M tokens, whose
@@ -531,19 +612,26 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, float* lse,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* st = strides;
   FwdArgsOf<Tag> a;
+  static_assert(kHeadDim<Tag> == kD || !kTileMasked<Tag>,
+                "the masked policy takes head dim 64");
+  if constexpr (kHeadDim<Tag> != kD) {
+    if (dtype != 1 || lse != nullptr) return 901;
+  }
   if constexpr (kTileMasked<Tag>) {
     if (dtype != 1 || n_split != 1 || mask == nullptr || sq != sk ||
         mask->q_tiles != (sq + kMaskTile - 1) / kMaskTile)
       return 901;
     a.mask = *mask;
-  } else if (dtype != 1) {
-    dim3 grid((sq + kScalarQ - 1) / kScalarQ, b * h);
-    fwd_f32<Tag><<<grid, kScalarWarps * 32, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, st[0], st[1],
-        st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-        st[12], st[13], st[14], h, sq, sk, scale);
-    return static_cast<int>(cudaGetLastError());
+  } else if constexpr (kHeadDim<Tag> == kD) {
+    if (dtype != 1) {
+      dim3 grid((sq + kScalarQ - 1) / kScalarQ, b * h);
+      fwd_f32<Tag><<<grid, kScalarWarps * 32, 0, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), lse, st[0],
+          st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+          st[11], st[12], st[13], st[14], h, sq, sk, scale);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
   const int tiles = (sk + kBlockN - 1) / kBlockN;
   if (n_split < 1 || n_split > tiles || n_split > kMaxSplits) return 901;

@@ -2,7 +2,7 @@
 
     python -m motion324_tpu_torch.generate_assets --input-root data/ \
         --output ./generated_assets [--N 4 --n 0] [--mv] [--texture] \
-        [--device cpu]
+        [--model 2.1] [--device cpu]
 
 Scans ``<input-root>/*_processed/masked_rgb`` clips, splits them across
 ``--N`` shards by greedy size balancing, and for every ``--skip``'th frame
@@ -10,7 +10,11 @@ of each clip of shard ``--n`` runs shape generation, mesh cleanup (floaters,
 degenerate faces, decimation to ``--max-faces``) and GLB export. Images are
 PNG/JPEG (needs PIL) or ``.npy`` arrays (H, W, 3|4) in [0, 1] or uint8.
 With ``--mv`` each clip's ``views/`` folder holds front/left/back/right
-images. The weights are random, drawn from seed 0. The recentering of the
+images. The weights are random, drawn from seed 0. ``--model 2.1`` builds
+Hunyuan3D-2.1's shape model at its release widths
+(:data:`~motion324_tpu_torch.hy3dgen.shape_pipeline.SHAPE21`: DINOv2-large,
+the 21-block DiT with its mixture of experts, 4 096 latents; single-view
+only; its released weights are not loaded yet). The recentering of the
 input image needs cv2; ``--no-recenter`` takes images as they are.
 
 ``--texture`` paints each cleaned mesh from its image with
@@ -138,15 +142,20 @@ def main(argv=None, pipeline=None, painter=None) -> int:
                    help="multiview conditioning from each clip's views/")
     p.add_argument("--no-recenter", action="store_true",
                    help="take images as they are (no cv2 needed)")
+    p.add_argument("--model", choices=["2.0", "2.1"], default="2.0",
+                   help="the shape model of the random-weight pipeline")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if args.skip < 1:
         p.error(f"--skip must be >= 1, got {args.skip}")
+    if args.model == "2.1" and args.mv:
+        p.error("--model 2.1 takes single-view images (no --mv)")
 
     from motion324_tpu_torch.hy3dgen.postprocess import (reduce_faces,
                                                          remove_degenerate,
                                                          remove_floaters)
-    from motion324_tpu_torch.hy3dgen.shape_pipeline import ShapeGenPipeline
+    from motion324_tpu_torch.hy3dgen.shape_pipeline import (SHAPE21,
+                                                            ShapeGenPipeline)
     from motion324_tpu_torch.io.glb import export_glb
 
     jobs = scan_jobs(args.input_root, args.skip)
@@ -157,9 +166,10 @@ def main(argv=None, pipeline=None, painter=None) -> int:
     mine = greedy_shards(jobs, args.N)[args.n]
     print(f"shard {args.n}/{args.N}: {len(mine)} of {len(jobs)} jobs")
     if pipeline is None:
+        dims = SHAPE21 if args.model == "2.1" else {}
         pipeline = ShapeGenPipeline.init_random(
             conditioner_type="mv" if args.mv else "single",
-            device=args.device)
+            device=args.device, **dims)
     if args.texture and painter is None:
         painter = _painter(args)
     os.makedirs(args.output, exist_ok=True)

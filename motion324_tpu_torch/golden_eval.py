@@ -34,6 +34,10 @@ Modes:
          ``--tower-weights``). A config whose weights are missing runs with
          seeded random ones and says ``weights: random``. Nothing is fetched.
 
+``--shape-model 2.1`` makes the video-only config's shape model
+Hunyuan3D-2.1's (random weights: its released ones are not loaded yet; tiny
+widths in the smoke mode, the release's otherwise).
+
 Renders are written as ``.npy`` frame stacks (no codec needed); mp4 inputs
 need cv2.
 """
@@ -132,13 +136,20 @@ def run_motion_config(name: str, mesh_path: str | None, video_path: str,
 def _shape(args, smoke: bool):
     import torch
 
-    from motion324_tpu_torch.hy3dgen.shape_pipeline import ShapeGenPipeline
+    from motion324_tpu_torch.hy3dgen.shape_pipeline import (SHAPE21,
+                                                            ShapeGenPipeline)
     from motion324_tpu_torch.video_only import TINY_SHAPE
-    if args.hy3d_ckpt:
+    model21 = args.shape_model == "2.1"
+    if args.hy3d_ckpt and not model21:      # a released 2.0 checkpoint
         return ShapeGenPipeline.from_hunyuan_ckpt(args.hy3d_ckpt,
                                                   device=args.device)
     gen = torch.Generator(args.device).manual_seed(args.seed)
-    dims = TINY_SHAPE if smoke else {"image_size": 518}
+    if model21:
+        # the 2.1 DiT at the tiny widths: 5 blocks, the last 2 with 4 experts
+        dims = ({**TINY_SHAPE, "model": "2.1", "dit_depth": 5,
+                 "dit_moe_layers": 2, "dit_experts": 4} if smoke else SHAPE21)
+    else:
+        dims = TINY_SHAPE if smoke else {"image_size": 518}
     return ShapeGenPipeline.init_random(gen, device=args.device, **dims)
 
 
@@ -194,6 +205,10 @@ def main(argv=None) -> int:
                    help="a subset of the configs (default: all five)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--shape-model", choices=["2.0", "2.1"], default="2.0",
+                   help="the random-weight shape model of the video-only "
+                        "config (2.1: Hunyuan3D-2.1's, its release widths "
+                        "outside the smoke mode)")
     args = p.parse_args(argv)
 
     from motion324_tpu_torch import resolve_device

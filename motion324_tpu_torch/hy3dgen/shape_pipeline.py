@@ -16,12 +16,22 @@ The stages, each a method with the JAX package's inputs and outputs:
 5. marching cubes (:mod:`motion324_tpu_torch.native`) on the host, at the
    grid's box.
 
+``model`` picks the DiT: ``"2.0"``, Hunyuan3D-2's Flux-style DiT
+(:class:`~motion324_tpu_torch.hy3dgen.dit.Hunyuan3DDiT`) over the
+conditioner's patch tokens; ``"2.1"``, Hunyuan3D-2.1's DiT with U-ViT skips
+and a mixture of experts
+(:class:`~motion324_tpu_torch.hy3dgen.dit21.Hunyuan3DDiT21`) over the
+conditioner's ``[CLS | patch]`` tokens. :data:`SHAPE21` holds the 2.1
+release's widths (DINOv2-large, 4 096 latents); its released weights are
+not loaded yet (random weights only).
+
 Everything up to the grid runs on the pipeline's device (CUDA unless the
 caller passes ``device="cpu"``) in ``dtype``; attention takes K1 (the
-conditioner and the DiT), K2 (the VAE's self-attention) and K6 (the volume
-query). The latent noise comes from a ``torch.Generator`` seeded with
-``seed``, so its numbers differ from the JAX package's ``PRNGKey`` noise; the
-stages take the same inputs as the JAX package's and give the same outputs.
+conditioner and the DiT; the 2.1 DiT's heads of 128 its own instantiation),
+K2 (the VAE's self-attention) and K6 (the volume query). The latent noise
+comes from a ``torch.Generator`` seeded with ``seed``, so its numbers differ
+from the JAX package's ``PRNGKey`` noise; the stages take the same inputs as
+the JAX package's and give the same outputs.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch.nn.functional as F
 from motion324_tpu_torch import resolve_device
 from motion324_tpu_torch.hy3dgen.conditioner import DinoConditionerMV
 from motion324_tpu_torch.hy3dgen.dit import Hunyuan3DDiT
+from motion324_tpu_torch.hy3dgen.dit21 import Hunyuan3DDiT21
 from motion324_tpu_torch.hy3dgen.scheduler import flow_match_sigmas
 from motion324_tpu_torch.hy3dgen.vae import ShapeVAE
 from motion324_tpu_torch.hy3dgen.volume import (decode_volume,
@@ -43,7 +54,18 @@ from motion324_tpu_torch.models.dinov2 import DinoViT
 from motion324_tpu_torch.models.motion_model import init_weights
 from motion324_tpu_torch.utils.profiling import span
 
-__all__ = ["ShapeGenPipeline"]
+__all__ = ["ShapeGenPipeline", "SHAPE21", "SHAPE_MODELS"]
+
+SHAPE_MODELS = ("2.0", "2.1")
+
+# Hunyuan3D-2.1's release (hunyuan3d-dit-v2-1): DINOv2-large at 518^2, the
+# 21-block DiT at 2 048 (16 heads of 128, the last 6 blocks 8 experts,
+# top-2, and a shared expert), the ShapeVAE decoder over 4 096 latents
+SHAPE21 = dict(model="2.1", image_size=518, cond_dim=1024, cond_depth=24,
+               cond_heads=16, cond_mlp_type="mlp", cond_native_grid=37,
+               dit_hidden=2048, dit_heads=16, dit_depth=21, dit_moe_layers=6,
+               dit_experts=8, num_latents=4096, latent_dim=64,
+               vae_width=1024, vae_heads=16, vae_layers=16)
 
 
 class ShapeGenPipeline:
@@ -52,8 +74,11 @@ class ShapeGenPipeline:
     ``state_dicts``: ``{'dit', 'vae', 'conditioner'}`` in the port's names
     (see :mod:`motion324_tpu_torch.utils.convert`); without them the weights
     are random, drawn from ``generator`` (default: seed 0 on the device) on
-    the device. After each call ``last_run`` holds the seconds of each stage
-    and the number of volume-query chunks.
+    the device. ``model`` ``"2.0"`` or ``"2.1"`` picks the DiT (the module
+    docstring; ``dit_single`` is the 2.0 DiT's, ``dit_moe_layers`` and
+    ``dit_experts`` the 2.1 DiT's). After each call
+    ``last_run`` holds the seconds of each stage and the number of
+    volume-query chunks.
     """
 
     def __init__(self, state_dicts: dict | None = None, *,
@@ -67,10 +92,19 @@ class ShapeGenPipeline:
                  attn_backend: str | None = None,
                  conditioner_type: str = "single", view_num: int = 4,
                  cond_mlp_type: str = "mlp", cond_native_grid: int = 37,
+                 model: str = "2.0", dit_moe_layers: int = 6,
+                 dit_experts: int = 8,
                  device=None, generator: torch.Generator | None = None):
         if conditioner_type not in ("single", "mv"):
             raise ValueError(f"conditioner_type must be 'single' or 'mv', "
                              f"got {conditioner_type!r}")
+        if model not in SHAPE_MODELS:
+            raise ValueError(f"model must be one of {SHAPE_MODELS}, got "
+                             f"{model!r}")
+        if model == "2.1" and conditioner_type == "mv":
+            raise ValueError("the 2.1 model takes the single-view "
+                             "conditioner")
+        self.model = model
         self.device = resolve_device(device)
         self.dtype = dtype
         self.conditioner_type = conditioner_type
@@ -79,12 +113,19 @@ class ShapeGenPipeline:
         # built without storage, then given it on the device in `dtype`: at
         # release width (2.4 B parameters) nothing is drawn on the host
         with torch.device("meta"):
-            self.dit = Hunyuan3DDiT(in_channels=latent_dim,
-                                    context_in_dim=cond_dim,
-                                    hidden_size=dit_hidden,
-                                    num_heads=dit_heads, depth=dit_depth,
-                                    depth_single_blocks=dit_single,
-                                    attn_backend=attn_backend)
+            if model == "2.1":
+                self.dit = Hunyuan3DDiT21(
+                    in_channels=latent_dim, context_dim=cond_dim,
+                    hidden_size=dit_hidden, num_heads=dit_heads,
+                    depth=dit_depth, num_moe_layers=dit_moe_layers,
+                    num_experts=dit_experts, attn_backend=attn_backend)
+            else:
+                self.dit = Hunyuan3DDiT(in_channels=latent_dim,
+                                        context_in_dim=cond_dim,
+                                        hidden_size=dit_hidden,
+                                        num_heads=dit_heads, depth=dit_depth,
+                                        depth_single_blocks=dit_single,
+                                        attn_backend=attn_backend)
             self.vae = ShapeVAE(num_latents=num_latents, embed_dim=latent_dim,
                                 width=vae_width, heads=vae_heads,
                                 num_decoder_layers=vae_layers,
@@ -95,10 +136,11 @@ class ShapeGenPipeline:
                     native_grid=cond_native_grid, mlp_type=cond_mlp_type,
                     view_num=view_num, attn_backend=attn_backend)
             else:
+                # the 2.1 DiT reads the CLS token too
                 self.conditioner = DinoViT(
                     embed_dim=cond_dim, depth=cond_depth, num_heads=cond_heads,
                     native_grid=cond_native_grid, mlp_type=cond_mlp_type,
-                    attn_backend=attn_backend)
+                    keep_cls=model == "2.1", attn_backend=attn_backend)
         for name in ("dit", "vae", "conditioner"):
             mod = getattr(self, name).to_empty(device=self.device).to(dtype)
             if state_dicts is None:

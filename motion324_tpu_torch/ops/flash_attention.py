@@ -1,12 +1,16 @@
 """K1 and K6 (forward), K3 / K4 (backward): flash attention over
-``(B, H, S, 64)``.
+``(B, H, S, 64)``; K1's bf16 forward also over ``(B, H, S, 128)``.
 
 The forward takes one of two kernels by the KV length, with the JAX
 package's rule (:func:`single_kv_route`): K6, ``csrc/flash_single_kv.cu``,
 when the KV padded to its block fits one block of at most 1 024 keys (KV in
 [1, 256] and [385, 1024]); K1, ``csrc/flash_fwd.cu``, the online softmax
 over KV tiles, otherwise. K6 keeps the exact max over all keys (two sweeps
-over a K resident in shared memory, grid by :func:`single_kv_plan`).
+over a K resident in shared memory, grid by :func:`single_kv_plan`). Head
+dim 128 (the Hunyuan3D-2.1 DiT) takes K1 at every KV length, in bf16 and
+without the log-sum-exp (no backward): its own instantiation of K1's
+kernel, ``fwd_bf16<..., k1_flash_fwd_d128>`` in a profile, counted in
+``flash_attention.launches`` as K1's other calls.
 
 K1 and K6 read q, k and v through their (batch, head, row) strides, so the
 dispatcher's ``(B, S, H, 64)`` views go in as they are, and write their
@@ -284,14 +288,17 @@ def flash_attention_bwd_split_reference(q, k, v, o, lse, do, n_split: int,
     return (dq.to(q.dtype) * sc).to(q.dtype), dk, dv
 
 
-def _load(name: str, argtypes) -> ctypes.CDLL:
-    lib = _libs.get(name)
+def _load(name: str, argtypes, entry: str | None = None) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with its function
+    ``m324_<entry>`` (default ``m324_<name>``) typed by ``argtypes``."""
+    key = entry or name
+    lib = _libs.get(key)
     if lib is None:
         lib = _build.load(name)
-        fn = getattr(lib, f"m324_{name}")
+        fn = getattr(lib, f"m324_{key}")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = lib
+        _libs[key] = lib
     return lib
 
 
@@ -306,14 +313,16 @@ _BWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p,
              + [ctypes.c_void_p])
 
 
-def _check_shapes(q, k, v):
+def _check_shapes(q, k, v, d: int = 64):
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention takes (B, H, S, D) q/k/v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError("q and k/v disagree on batch, heads or head dim")
-    if q.shape[3] != 64:
-        raise ValueError(f"the CUDA kernel takes head dim 64, got {q.shape[3]}")
+    if q.shape[3] != d:
+        raise ValueError(f"the CUDA kernel takes head dim {d}, got {q.shape[3]}"
+                         + (" (head dim 128: K1's bf16 forward without the "
+                            "log-sum-exp only)" if q.shape[3] == 128 else ""))
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -324,8 +333,8 @@ def _check_shapes(q, k, v):
         raise ValueError("empty sequence")
 
 
-def _check(q, k, v) -> list[int]:
-    """What K1 takes: (B, H, S, 64) q/k/v of one dtype on one device, each
+def _check(q, k, v, d: int = 64) -> list[int]:
+    """What K1 takes: (B, H, S, d) q/k/v of one dtype on one device, each
     with unit stride in the head dim, 16-byte-aligned (batch, head, row)
     strides and a 16-byte-aligned base: contiguous tensors and the
     dispatcher's transposed ``(B, S, H, 64)`` views alike. Returns the
@@ -334,11 +343,11 @@ def _check(q, k, v) -> list[int]:
     reads each attribute once."""
     qs, ks, vs = q.shape, k.shape, v.shape
     if (len(qs) != 4 or len(ks) != 4 or ks != vs or qs[:2] != ks[:2]
-            or qs[3] != 64 or ks[3] != 64 or qs[2] == 0 or ks[2] == 0
+            or qs[3] != d or ks[3] != d or qs[2] == 0 or ks[2] == 0
             or q.dtype not in _DTYPES or k.dtype != q.dtype
             or v.dtype != q.dtype or k.device != q.device
             or v.device != q.device):
-        _check_shapes(q, k, v)    # raises, saying what is wrong
+        _check_shapes(q, k, v, d)    # raises, saying what is wrong
     return (map_strides("q", q) + map_strides("k", k)
             + map_strides("v", v))
 
@@ -359,7 +368,7 @@ def map_strides(name: str, t: torch.Tensor) -> list[int]:
             or (st[2] % per16 and shape[2] > 1):
         raise ValueError(f"{name}'s base or rows are not 16-byte aligned "
                          f"(strides {st})")
-    pad = shape[2] * 64
+    pad = shape[2] * shape[3]
     return [st[0] if shape[0] > 1 else pad, st[1] if shape[1] > 1 else pad,
             st[2] if shape[2] > 1 else pad]
 
@@ -380,10 +389,13 @@ def _stream(t: torch.Tensor) -> int:
 
 def _forward_k1(q, k, v, scale: float, with_lse: bool):
     """K1 on CUDA tensors, whatever the KV length: ``(out, lse or None)``,
-    out (B, H, Sq, 64) laid out heads-last where q is, else contiguous. bf16
-    calls split their keys by :func:`split_count`."""
+    out (B, H, Sq, D) laid out heads-last where q is, else contiguous. bf16
+    calls split their keys by :func:`split_count`. D is 64, or 128 in bf16
+    without the LSE."""
+    d = (128 if q.shape[-1] == 128 and q.dtype == torch.bfloat16
+         and not with_lse else 64)
     return hopper_forward("flash_fwd", flash_attention, q, k, v, scale,
-                          with_lse, split_count)
+                          with_lse, split_count, d)
 
 
 def lse_strides(b: int, h: int, sq: int, heads_last: bool) -> list[int]:
@@ -395,32 +407,35 @@ def lse_strides(b: int, h: int, sq: int, heads_last: bool) -> list[int]:
 
 
 def hopper_forward(name: str, counter, q, k, v, scale: float, with_lse: bool,
-                   split):
+                   split, d: int = 64):
     """Launch the Hopper forward kernel of library ``name`` (``"flash_fwd"``:
     K1; ``"short_fwd"``: the K9 forward; the same kernel under each one's
-    name) on CUDA ``(B, H, S, 64)`` tensors: ``(out, lse or None)``, out
+    name) on CUDA ``(B, H, S, d)`` tensors: ``(out, lse or None)``, out
     laid out heads-last where q is, else contiguous, lse f32 ``(B*H, Sq)``;
     a bf16 call cuts its keys into ``split(Sq, Sk)`` ranges (f32: 1)
-    (:func:`hopper_launch`)."""
-    strides = _check(q, k, v)
+    (:func:`hopper_launch`). The caller names the head dim ``d``: 64, or
+    128 where the library has that instantiation (K1's, in bf16 without the
+    LSE)."""
+    strides = _check(q, k, v, d)
     dev = q.device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
             return hopper_forward(name, counter, q, k, v, scale, with_lse,
-                                  split)
+                                  split, d)
     b, h, sq, _ = q.shape
     sk = k.shape[2]
     out, out_strides = _empty_out(q)
     strides += out_strides + lse_strides(b, h, sq, heads_last=False)
     n_split = split(sq, sk) if q.dtype == torch.bfloat16 else 1
     lse = hopper_launch(name, counter, q, k, v, out, strides, b, h, sq, sk,
-                        n_split, scale, with_lse, (b * h, sq))
+                        n_split, scale, with_lse, (b * h, sq), d)
     return out, lse
 
 
 def hopper_launch(name: str, counter, q, k, v, out, strides, b: int, h: int,
                   sq: int, sk: int, n_split: int, scale: float,
-                  with_lse: bool, lse_shape: tuple) -> torch.Tensor | None:
+                  with_lse: bool, lse_shape: tuple,
+                  d: int = 64) -> torch.Tensor | None:
     """The one launch of the Hopper forward (K1, K9, K2) on the current
     device, over ``b * h`` slices of ``sq`` queries and ``sk`` keys, with
     the 15 (batch, head, row) strides of q, k, v, ``out`` and the LSE
@@ -428,8 +443,10 @@ def hopper_launch(name: str, counter, q, k, v, out, strides, b: int, h: int,
     the f32 LSE, a new contiguous tensor of ``lse_shape`` that those strides
     describe, or None. Adds one to ``counter.launches`` or
     ``counter.lse_launches``. The host work here is part of each call's time
-    at the short rows, so it is kept lean."""
+    at the short rows, so it is kept lean. Head dim ``d`` 128 calls the
+    library's ``m324_<name>_d128``."""
     dev = q.device
+    entry = name if d == 64 else f"{name}_d{d}"
     # one f32 buffer (one allocation): the LSE, then for a split call the
     # partial LSEs and outputs, each part at a 16-byte boundary (the kernel
     # reads the partial outputs as float4); the LSE is a view, so the
@@ -438,7 +455,7 @@ def hopper_launch(name: str, counter, q, k, v, out, strides, b: int, h: int,
     n_lse = -(-rows // 4) * 4 if with_lse else 0
     n_part = n_split * rows if n_split > 1 else 0
     n_plse = -(-n_part // 4) * 4
-    buf = (torch.empty(n_lse + n_plse + 64 * n_part, dtype=torch.float32,
+    buf = (torch.empty(n_lse + n_plse + d * n_part, dtype=torch.float32,
                        device=dev) if n_lse + n_part else None)
     base = 0 if buf is None else buf.data_ptr()
     lse = buf[:rows].view(lse_shape) if with_lse else None
@@ -452,7 +469,7 @@ def hopper_launch(name: str, counter, q, k, v, out, strides, b: int, h: int,
     # never split)
     tickets = (_tickets(dev, stream, -(-sq // K1_Q_TILE) * b * h)
                if n_split > 1 else None)
-    rc = getattr(_load(name, _K1_ARGS), "m324_" + name)(
+    rc = getattr(_load(name, _K1_ARGS, entry), "m324_" + entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         base if with_lse else None, part_o, part_lse,
         None if tickets is None else tickets.data_ptr(),
@@ -460,7 +477,7 @@ def hopper_launch(name: str, counter, q, k, v, out, strides, b: int, h: int,
         (ctypes.c_longlong * 15)(*strides), n_split, scale, _DTYPES[q.dtype],
         stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: error {rc} (CUDA error "
+        raise RuntimeError(f"{entry} launch failed: error {rc} (CUDA error "
                            f"below 900; 900 no cuTensorMapEncodeTiled; 901 an "
                            f"empty split; 902 too few tickets; 1000 + the "
                            f"driver's tensor-map error)")
@@ -472,16 +489,16 @@ def hopper_launch(name: str, counter, q, k, v, out, strides, b: int, h: int,
 
 
 def _empty_out(q: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
-    """An uninitialised (B, H, Sq, 64) output for K1, K6, K7 and K9 and its
+    """An uninitialised (B, H, Sq, D) output for K1, K6, K7 and K9 and its
     (batch, head, row) strides: laid out heads-last where q is a
-    (B, S, H, 64) view, so that the dispatcher's transpose back is
+    (B, S, H, D) view, so that the dispatcher's transpose back is
     contiguous, else contiguous."""
-    b, h, sq, _ = q.shape
+    b, h, sq, d = q.shape
     if q.stride(1) < q.stride(2):
-        out = torch.empty((b, sq, h, 64), dtype=q.dtype, device=q.device)
-        return out.transpose(1, 2), [sq * h * 64, 64, h * 64]
-    out = torch.empty((b, h, sq, 64), dtype=q.dtype, device=q.device)
-    return out, [h * sq * 64, sq * 64, 64]
+        out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        return out.transpose(1, 2), [sq * h * d, d, h * d]
+    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    return out, [h * sq * d, sq * d, d]
 
 
 @functools.lru_cache(maxsize=None)
@@ -552,7 +569,7 @@ def _forward(q, k, v, scale: float, with_lse: bool):
         if not with_lse:
             return flash_attention_reference(q, k, v, scale=scale), None
         return flash_attention_reference(q, k, v, scale=scale, with_lse=True)
-    if single_kv_route(k.shape[2]):
+    if q.shape[-1] != 128 and single_kv_route(k.shape[2]):
         return _forward_single_kv(q, k, v, scale, with_lse)
     return _forward_k1(q, k, v, scale, with_lse)
 

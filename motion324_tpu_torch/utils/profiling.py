@@ -10,6 +10,11 @@ stream at open and close. Closed spans stay in a bounded in-memory buffer;
 the program runs) and :func:`reset` clears them. A span's device seconds
 are the time between its two events; without events, its host seconds.
 
+A device counter (:func:`count`) adds a tensor of counts into a running
+sum that stays where the counts are, so the program never waits for it;
+:func:`counters` copies every sum to the host once, after a request, and
+:func:`reset` clears them.
+
 With ``MOTION324_DEBUG=1`` (read when this module is imported) every span
 records, and opens a ``torch.profiler.record_function`` range of its name,
 so that the program's spans lie on a profiler trace's clock. Unset, a span
@@ -40,7 +45,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["span", "phase_timer", "spans", "reset", "SpanRecord",
-           "profile_trace"]
+           "profile_trace", "count", "counters"]
 
 _ENABLED = os.environ.get("MOTION324_DEBUG", "0") == "1"
 _TRACE_DIR = os.environ.get("MOTION324_TRACE_DIR")
@@ -51,6 +56,7 @@ _DONE: collections.deque = collections.deque(maxlen=MAX_SPANS)
 _IDS = itertools.count(1)
 _OPEN = threading.local()      # .stack: this thread's open spans
 _EVENTS: list = []             # timing events free for a span to take
+_COUNTS: dict = {}             # device counters: name -> running int64 sum
 _OFF = contextlib.nullcontext()
 
 
@@ -188,8 +194,28 @@ def spans() -> list[SpanRecord]:
 
 
 def reset() -> None:
-    """Forget every closed span."""
+    """Forget every closed span and every device counter."""
     _DONE.clear()
+    _COUNTS.clear()
+
+
+def count(name: str, values: torch.Tensor) -> None:
+    """Add ``values`` (integer counts, any shape) to the device counter
+    ``name``, on the device that holds them, without a synchronisation.
+    Kept while spans record (``MOTION324_DEBUG=1``); else a flag test."""
+    if not _ENABLED:
+        return
+    acc = _COUNTS.get(name)
+    if acc is None or acc.shape != values.shape or acc.device != values.device:
+        _COUNTS[name] = values.detach().to(torch.int64, copy=True)
+    else:
+        acc.add_(values)
+
+
+def counters() -> dict[str, list]:
+    """Every device counter's sum on the host (one copy each), as nested
+    lists of ints."""
+    return {name: acc.tolist() for name, acc in _COUNTS.items()}
 
 
 @contextlib.contextmanager
