@@ -43,9 +43,11 @@ Phases, each of which raises on failure (exit code non-zero):
    generate_assets defaults (50 steps, guidance 5, octree 384,
    hierarchical decode in chunks of 8 192), then the CLI's cleanup: the
    exact launches per mesh by call site (K1 40 + 2 400, K2 16, one K6 per
-   volume-query chunk), a mesh within the box, seconds per mesh by stage
-   (one mesh), peak memory, a device-only profile; stage by stage against
-   the plain attention path, and two injected K6 faults.
+   volume-query chunk, the DiT's fused passes 128 / 97 / 96 / 32 a step by
+   site), a mesh within the box, seconds per mesh by stage (one mesh), peak
+   memory, a device-only profile; stage by stage against the plain path
+   (plain attention and the DiT's plain passes), and two injected K6
+   faults.
 7. paint: PaintPipeline (render 512, texture 2 048, delight on) with
    MultiviewDiffusion at release width (UNet2p5D 320/640/1280/1280, SD VAE
    128/256/512/512) in bf16 with seeded random weights, on a 40 000-face
@@ -112,7 +114,8 @@ Phases, each of which raises on failure (exit code non-zero):
    site (K1, K6, K2 at the UNets' levels, K1 at the upscaler's 128^2 level
    and the text DiT's joint attention; none for HunyuanDiT, whose head dim
    is 88), seconds per pipeline; the image, the denoiser's prediction and
-   the first K1 site against the plain route, and a K1 with its logit scale
+   the first K1 site against the plain route (plain attention and, in the
+   text DiT, the plain passes), and a K1 with its logit scale
    10% low caught; HunyuanDiT in bf16 against f32.
 
 14. distributed (last): NCCL at world size 1 in this process (a 16-frame
@@ -142,6 +145,18 @@ Phases, each of which raises on failure (exit code non-zero):
    within an ulp (the freeze and the remap bit for bit), one launch a
    call, timed beside its bound, the plain version, the host route and
    the copy to pinned host memory.
+
+17. DiT fusion (after the smoothing kernel): the 2.0 DiT's four fused
+   passes (``ops/dit_fused.py``: QK-RMSNorm, norm + modulate, gate +
+   residual, GELU + concat) at its call sites at batch 2 (double block
+   image / text stream, single block, last layer), bf16 and f32, against
+   their plain versions (the gate and the concat bit for bit, the norms
+   within a bf16 ulp), one launch a call, the bf16 calls timed with the
+   launches queued behind a sleep (device time, four copies of the inputs
+   in turn so that the L2 cache does not hold them) beside the bytes bound
+   and the plain route; the wrappers' host work a call with the library
+   call stubbed and launched; one DiT step's host and device seconds. The
+   rows' launches are the shape phase's, by the same sites.
 
 The kernel phase also holds K7 at the three turbo shapes (on the paint
 path's positions and on random surface positions, with their pair and
@@ -188,6 +203,7 @@ REL_TOL = {"float32": 2.0 ** -14, "bfloat16": 2.0 ** -6}
 
 REPLACES = {
     "flash_fwd": "motion324_tpu/ops/flash_attention.py:67",
+    "flash_fwd_d128": "none (K1 at the 2.1 DiT's head dim; the JAX package has no 2.1 model)",
     "flash_fwd_lse": "motion324_tpu/ops/flash_attention.py:67",
     "flash_bwd_fused": "motion324_tpu/ops/flash_attention.py:285",
     "flash_bwd_two_pass": "motion324_tpu/ops/flash_attention.py:221",
@@ -202,11 +218,17 @@ REPLACES = {
     "short_fwd_lse": "motion324_tpu/ops/short_attention.py:53",
     "short_bwd": "motion324_tpu/ops/short_attention.py:71",
     "smooth_traj": "none (the JAX package smooths on the host in numpy)",
+    "dit_rmsnorm": "none (XLA fuses the DiT's QK-RMSNorm in the JAX package)",
+    "dit_modulate": "none (XLA fuses the DiT's norm + modulate)",
+    "dit_gate": "none (XLA fuses the DiT's gated residual)",
+    "dit_gelu_cat": "none (XLA fuses the single block's GELU + concat)",
 }
-SOURCES = {"flash_fwd_lse": "flash_fwd", "flash_bwd_fused": "flash_bwd",
+SOURCES = {"flash_fwd_lse": "flash_fwd", "flash_fwd_d128": "flash_fwd", "flash_bwd_fused": "flash_bwd",
            "flash_bwd_two_pass": "flash_bwd", "folded_fwd_lse": "folded_fwd",
            "folded_bwd": "folded_bwd", "flash_single_kv_lse": "flash_single_kv",
-           "short_fwd_lse": "short_fwd"}
+           "short_fwd_lse": "short_fwd", "dit_rmsnorm": "dit_fused",
+           "dit_modulate": "dit_fused", "dit_gate": "dit_fused",
+           "dit_gelu_cat": "dit_fused"}
 
 
 def log(msg: str) -> None:
@@ -765,6 +787,7 @@ def profile_clip(torch, run) -> None:
 
 def launch_counters(fa, fo) -> dict:
     """Each kernel's launch counter, by name: (wrapper function, attribute)."""
+    from motion324_tpu_torch.ops import dit_fused as df
     from motion324_tpu_torch.ops import masked_attention as ma
     from motion324_tpu_torch.ops import rasterizer as ra
     from motion324_tpu_torch.ops import short_attention as sa
@@ -781,7 +804,11 @@ def launch_counters(fa, fo) -> dict:
             "flash_bwd_two_pass": (fa.flash_attention_bwd, "two_pass_launches"),
             "folded_bwd": (fo.folded_attention_bwd, "launches"),
             "flash_single_kv": (fa.flash_attention, "single_kv_launches"),
-            "flash_single_kv_lse": (fa.flash_attention, "single_kv_lse_launches")}
+            "flash_single_kv_lse": (fa.flash_attention, "single_kv_lse_launches"),
+            "dit_rmsnorm": (df.dit_rmsnorm, "launches"),
+            "dit_modulate": (df.dit_modulate, "launches"),
+            "dit_gate": (df.dit_gate, "launches"),
+            "dit_gelu_cat": (df.dit_gelu_cat, "launches")}
 
 
 def read_launches(fa, fo) -> dict:
@@ -814,10 +841,15 @@ def launch_spy(fa, fo, record_raster: list | None = None):
     512 the ShapeVAE, over 256 the UNet's 16^2 level, over 384 its mid
     multiview attention, any other a local layer; K7 by its token count;
     K8 by its width; K9 (the legacy route, (B, H, S, 64)) by
-    :func:`short_site`. The counts are the wrappers' own counters, read before
+    :func:`short_site`; the 2.0 DiT's fused passes (as ``hy3dgen.dit`` calls
+    them) by their token count: 512 a double block's image stream, 1 369
+    its text stream, 1 881 a single block (the shape DiT), 1 024 / 77 /
+    1 101 the text DiT's, and a modulation of a slice of the merged stream
+    the last layer. The counts are the wrappers' own counters, read before
     and after each call. With ``record_raster`` a list, each K8 call's
     inputs and output are appended to it. Returns (counts by (kernel,
     site), a function that removes the wrappers)."""
+    from motion324_tpu_torch.hy3dgen import dit
     from motion324_tpu_torch.ops import masked_attention as ma
     from motion324_tpu_torch.ops import rasterizer as ra
     from motion324_tpu_torch.ops import short_attention as sa
@@ -827,6 +859,9 @@ def launch_spy(fa, fo, record_raster: list | None = None):
                    24576: "unet_mv_24576", 6144: "unet_mv_6144",
                    1536: "unet_mv_1536", 16384: "sr_16384", 1101: "t2i_joint"}
     folded_sites = {257: "dino", 512: "vae", 256: "unet_16", 384: "unet_mv_384"}
+    dit_sites = {512: "double img", 1369: "double txt", 1881: "single",
+                 1024: "t2i double img", 77: "t2i double txt",
+                 1101: "t2i single"}
 
     def spy(real, site):
         def f(*args, **kw):
@@ -855,6 +890,8 @@ def launch_spy(fa, fo, record_raster: list | None = None):
     flash = lambda a: flash_sites.get(a[0].shape[2], "global")
     folded = lambda a: folded_sites.get(a[0].shape[1], "local")
     saved_q = lambda a: a[0].saved_tensors[0]
+    dit_site = lambda a: dit_sites.get(a[0].shape[1], "other")
+    last = lambda s: s.replace("double img", "last layer")
     undo = [lambda: setattr(ra, "raster_kernel", real_raster),
             wrap(fa, "_forward", flash), wrap(fo, "_forward", folded),
             wrap(ma, "_forward", lambda a: f"turbo_{a[0].shape[2]}"),
@@ -868,7 +905,11 @@ def launch_spy(fa, fo, record_raster: list | None = None):
             wrap(sa, "_forward", lambda a: short_site(a[0], a[1])),
             patch_backward(sa.ShortAttentionFn,
                            lambda r: spy(r, lambda a: short_site(
-                               *a[0].saved_tensors[:2])))]
+                               *a[0].saved_tensors[:2]))),
+            wrap(dit, "dit_rmsnorm", dit_site), wrap(dit, "dit_gate", dit_site),
+            wrap(dit, "dit_gelu_cat", dit_site),
+            wrap(dit, "dit_modulate", lambda a: dit_site(a) if
+                 a[0].is_contiguous() else last(dit_site(a)))]
     return counts, lambda: [u() for u in reversed(undo)]
 
 
@@ -1524,14 +1565,34 @@ SHAPE_DIMS = dict(cond_depth=40, cond_mlp_type="swiglu")
 SHAPE_STEPS = 50
 
 
+def dit_fused_launches(double: int, single: int, prefix: str = "") -> dict:
+    """The fused passes' launches in one forward of a 2.0 DiT of ``double``
+    + ``single`` blocks, by (kernel, site ``prefix`` + name): q and k of
+    each stream in a double block and of a single block (QK-RMSNorm); two
+    modulated norms of each stream in a double block, one in a single
+    block, one in the last layer; two gated residuals of each stream in a
+    double block, one in a single block; one GELU + concat a single block.
+    The release DiT (16 + 32): 128 / 97 / 96 / 32."""
+    img, txt, one = prefix + "double img", prefix + "double txt", prefix + "single"
+    return {("dit_rmsnorm", img): 2 * double, ("dit_rmsnorm", txt): 2 * double,
+            ("dit_rmsnorm", one): 2 * single,
+            ("dit_modulate", img): 2 * double, ("dit_modulate", txt): 2 * double,
+            ("dit_modulate", one): single,
+            ("dit_modulate", prefix + "last layer"): 1,
+            ("dit_gate", img): 2 * double, ("dit_gate", txt): 2 * double,
+            ("dit_gate", one): single, ("dit_gelu_cat", one): single}
+
+
 def shape_launches(chunks: int) -> dict:
     """Launches per mesh by (kernel, call site): 40 conditioner layers and
-    (16 + 32) DiT blocks x 50 steps on K1, 16 ShapeVAE self-attention layers
-    on K2, one K6 per volume-query chunk; no LSE variant, no backward."""
+    (16 + 32) DiT blocks x 50 steps on K1, the DiT's fused passes x 50
+    steps, 16 ShapeVAE self-attention layers on K2, one K6 per volume-query
+    chunk; no LSE variant, no backward."""
     return {("flash_fwd", "conditioner"): 40,
             ("flash_fwd", "dit"): 48 * SHAPE_STEPS,
             ("folded_fwd", "vae"): 16,
-            ("flash_single_kv", "volume_query"): chunks}
+            ("flash_single_kv", "volume_query"): chunks,
+            **{k: n * SHAPE_STEPS for k, n in dit_fused_launches(16, 32).items()}}
 
 
 def synthetic_image(seed: int, size: int = 518) -> np.ndarray:
@@ -1572,6 +1633,20 @@ def set_attn_backend(modules, backend) -> None:
         for m in mod.modules():
             if hasattr(m, "attn_backend"):
                 m.attn_backend = backend
+
+
+def plain_dit_passes():
+    """Point the 2.0 DiT's fused passes (``hy3dgen.dit``'s names of
+    ``ops/dit_fused.py``) at their plain versions, so that a plain route
+    holds none of the fused kernels; returns a function that restores
+    them."""
+    from motion324_tpu_torch.hy3dgen import dit
+    from motion324_tpu_torch.ops import dit_fused as df
+    real = {n: getattr(dit, n) for n in ("dit_rmsnorm", "dit_modulate",
+                                         "dit_gate", "dit_gelu_cat")}
+    for n in real:
+        setattr(dit, n, getattr(df, f"{n}_reference"))
+    return lambda: [setattr(dit, n, f) for n, f in real.items()]
 
 
 def k6_faults(torch) -> dict:
@@ -1721,16 +1796,19 @@ SHAPE_TOL = {"conditioner": 3e-2, "dit_velocity": 3e-2, "vae_decode": 2e-2,
 
 
 def shape_agreement(torch, pipe, inp) -> list[str]:
-    """The kernel path against the plain attention path, stage by stage,
-    and the injected K6 faults against those limits; returns the
-    problems found (every reading is printed first)."""
+    """The kernel path against the plain path (plain attention, the DiT's
+    plain passes: :func:`plain_dit_passes`), stage by stage, and the
+    injected K6 faults against those limits; returns the problems found
+    (every reading is printed first)."""
     from motion324_tpu_torch.ops import attention
     models = (pipe.conditioner, pipe.dit, pipe.vae)
     k_out, k_steps = shape_stage_outputs(torch, pipe, inp, SHAPE_STEPS)
     set_attn_backend(models, "plain")
+    restore = plain_dit_passes()
     try:
         p_out, p_steps = shape_stage_outputs(torch, pipe, inp, SHAPE_STEPS)
     finally:
+        restore()
         set_attn_backend(models, None)
 
     def readings(out, steps, measure=rel_norm):
@@ -2297,6 +2375,210 @@ def phase_smoothing(torch, seed: int) -> list[dict]:
                  dtype="float32", main=True, max_abs_err=worst, ms=ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
                  library_ms=None)]
+
+
+def dit_sites_module():
+    """``tests/dit_sites.py``: the 2.0 DiT's call sites of the fused passes
+    (``SITES``: at batch 2 over the shape cell's 3 072 + 1 369 tokens), their
+    inputs as the DiT lays them out, and the one-ulp bounds of the norms."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("dit_sites", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "dit_sites.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def queued_ms(torch, fns, n: int = 40, reps: int = 5) -> float:
+    """Device milliseconds a call, the median over ``reps`` of ``n`` calls
+    (of ``fns`` in turn) enqueued behind a sleep kernel, so that the card
+    runs them back to back whatever the host's time a call."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        for i in range(n):
+            fns[i % len(fns)]()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
+def dit_host_us(torch) -> dict:
+    """Each fused wrapper's host work a call, in us: the median of 5 rounds
+    of 2 000 calls at its first site in ``SITES`` cut to 16 rows, (a) with
+    the library's entry point stubbed by a Python function that returns 0
+    (no ctypes call, no launch) and (b) launched, the card then being far
+    ahead of the host; and (c) the plain route's, which the DiT ran
+    before."""
+    import types
+    from motion324_tpu_torch.ops import dit_fused as df
+    from motion324_tpu_torch.ops import flash_attention as fa
+    ds = dit_sites_module()
+    out = {}
+    for kind, _, _ in ds.SITES:
+        kernel = "dit_" + ds.family(kind)
+        if kernel in out:
+            continue
+        args = ds.site_inputs(kind, l=16, dtype=torch.bfloat16, device="cuda",
+                              **ds.RELEASE)
+        fn = getattr(df, kernel)
+        plain = getattr(df, f"{kernel}_reference")
+
+        def per_call(f):
+            rounds = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2000):
+                    f(*args)
+                rounds.append((time.perf_counter() - t0) / 2000 * 1e6)
+            torch.cuda.synchronize()
+            return float(np.median(rounds))
+        launched = per_call(fn)
+        real = fa._libs[kernel]      # ops.flash_attention._load's cache
+        fa._libs[kernel] = types.SimpleNamespace(
+            **{f"m324_{kernel}": lambda *a: 0})
+        try:
+            stubbed = per_call(fn)
+        finally:
+            fa._libs[kernel] = real
+        out[kernel] = dict(stubbed=stubbed, launched=launched,
+                           plain=per_call(plain))
+    return out
+
+
+def dit_step_seconds(torch, seed: int, latents: int, cond_tokens: int,
+                     steps: int = 6) -> tuple[float, float]:
+    """Medians over ``steps`` CFG Euler steps (after one) of the release
+    2.0 DiT at batch 2 over ``latents`` + ``cond_tokens`` tokens, through
+    ``ShapeGenPipeline.denoise`` with spans on: (host seconds, device
+    seconds) of ``shape.denoise.step``. Its own tiny conditioner and
+    ShapeVAE are drawn too; only the DiT runs."""
+    from motion324_tpu_torch.hy3dgen.scheduler import flow_match_sigmas
+    from motion324_tpu_torch.hy3dgen.shape_pipeline import ShapeGenPipeline
+    from motion324_tpu_torch.utils import profiling
+    gen = torch.Generator("cuda").manual_seed(seed)
+    pipe = ShapeGenPipeline.init_random(gen, device="cuda",
+                                        num_latents=latents, cond_depth=1,
+                                        vae_layers=1)
+    x = torch.randn(1, latents, 64, generator=gen, device="cuda")
+    cond = torch.randn(1, cond_tokens, 1536, generator=gen,
+                       device="cuda").bfloat16()
+    pair = torch.cat([cond, torch.zeros_like(cond)])
+    sig = flow_match_sigmas(steps + 1)
+    pipe.denoise(x, pair, sig[:2], 5.0)
+    torch.cuda.synchronize()
+    was = profiling._ENABLED
+    profiling._ENABLED = True
+    profiling.reset()
+    try:
+        pipe.denoise(x, pair, sig, 5.0)
+        torch.cuda.synchronize()
+        rec = [r for r in profiling.spans() if r.name == "shape.denoise.step"]
+    finally:
+        profiling._ENABLED = was
+        profiling.reset()
+    del pipe
+    torch.cuda.empty_cache()
+    return (float(np.median([r.host_s for r in rec[1:]])),
+            float(np.median([r.device_s for r in rec[1:]])))
+
+
+def phase_dit_fused(torch, seed: int) -> list[dict]:
+    """The 2.0 DiT's fused passes at its call sites (``tests/dit_sites.py``
+    ``SITES``: at batch 2 over the shape cell's 3 072 + 1 369 tokens), bf16
+    and f32: each against its plain version (the gate and the GELU +
+    concat bit for bit; the norms alone within one bf16 ulp, that ulp
+    carried through the scale at the site, and in f32 within 2^-20 of max
+    |plain|), one launch a call; the bf16 calls' device time
+    (:func:`queued_ms`, four copies of the inputs in turn) beside the bytes
+    bound (inputs and output once at 3.35 TB/s) and the plain route's; the
+    wrappers' host work (:func:`dit_host_us`); a DiT step's host and device
+    seconds at the benchmark's tokens (3 072 + 1 369) and at 1 024 + 64,
+    where the card is far ahead of the host. Returns the bf16 rows, by
+    kernel and site; the shape phase counts their launches by the same
+    sites (:func:`launch_spy`)."""
+    from motion324_tpu_torch.ops import dit_fused as df
+    ds = dit_sites_module()
+    rows, problems = [], []
+    for kind, site, l in ds.SITES:
+        fam = ds.family(kind)
+        kernel = "dit_" + fam
+        fn = getattr(df, kernel)
+        plain = getattr(df, f"{kernel}_reference")
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            copies = [ds.site_inputs(kind, l=l, dtype=dtype, device="cuda",
+                                     seed=seed + k, **ds.RELEASE)
+                      for k in range(4 if dtype == torch.bfloat16 else 1)]
+            args = copies[0]
+            before = fn.launches
+            with torch.inference_mode():
+                got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            launched = fn.launches - before
+            if fam in ("gate", "gelu_cat"):
+                diff = "bit for bit" if torch.equal(got, want) else "DIFFERS"
+                ok = diff == "bit for bit"
+            elif dtype == torch.bfloat16:
+                # the norm alone (a unit scale, no modulation) within one
+                # ulp, or 2^-16 where LayerNorm's centering cancels; at the
+                # site that ulp carried through the factor and the
+                # roundings after it
+                with torch.inference_mode():
+                    alone = ds.without_factor(fam, args)
+                    n_got, n_want = fn(*alone), plain(*alone)
+                    norm, factor = ds.norm_and_factor(fam, args)
+                alone_over = ds.past_one_ulp(n_got, n_want)
+                over = ds.past_one_ulp(got, want, factor, norm)
+                share = (n_got != n_want).float().mean().item()
+                diff = (f"the norm differs on {share:.2e} of the elements "
+                        f"(max {int(ds.bf16_ulps(n_got, n_want).max())} ulps, "
+                        f"{alone_over} past one), {over} past one carried ulp "
+                        f"at the site")
+                ok = alone_over == 0 and over == 0 and share <= 1e-3
+            else:
+                err, top = rel_err(got, want)
+                diff = f"max |d| {err / top:.2e} of max |plain|"
+                ok = err <= 2.0 ** -20 * top
+            if not ok or launched != 1:
+                problems.append(f"{kernel} {site} {dname}: {diff}, "
+                                f"{launched} launches")
+            if dtype != torch.bfloat16:
+                log(f"  {kernel} {site} L={l} {dname}: {diff}")
+                continue
+            nbytes = sum(t.numel() * t.element_size() for t in args) \
+                + got.numel() * got.element_size()
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            ms = queued_ms(torch, [lambda a=a: fn(*a) for a in copies])
+            plain_ms = queued_ms(torch, [lambda a=a: plain(*a) for a in copies],
+                                 n=10)
+            log(f"  {kernel} {site} L={l} {dname}: {diff}; {ms:.4f} ms against "
+                f"its bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%, "
+                f"{nbytes / 1e6:.1f} MB); plain route {plain_ms:.4f} ms")
+            rows.append(dict(kernel=kernel, case=site, dtype=dname, main=True,
+                             max_abs_err=rel_err(got, want)[0], ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by="bytes", library_ms=None))
+            del copies, got, want
+    for kernel, us in dit_host_us(torch).items():
+        log(f"  {kernel} host work a call: {us['stubbed']:.2f} us with the "
+            f"library call stubbed, {us['launched']:.2f} us launched; the "
+            f"plain route {us['plain']:.2f} us")
+    for latents, cond_tokens in ((3072, 1369), (1024, 64)):
+        host, device = dit_step_seconds(torch, seed, latents, cond_tokens)
+        log(f"  one DiT step at batch 2 over {latents} + {cond_tokens} tokens: "
+            f"{host:.5f} s of host, {device:.5f} s of device")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return rows
 
 
 def phase_raster(torch, seed: int) -> list[dict]:
@@ -4234,7 +4516,8 @@ def extras_launches() -> dict:
     K6 at 32^2, 5 K2 at 16^2 (the 8^2 mid level and every cross-attention
     are plain); a ControlNet call 2 + 2 + 2; the upscaler's UNet at 128^2:
     5 K1 at 128^2, 5 K1 at 64^2, 5 K6 at 32^2 and its mid level's K2 at
-    16^2; a text DiT call 24 K1 (8 double + 16 single blocks)."""
+    16^2; a text DiT call 24 K1 (8 double + 16 single blocks) and its
+    fused passes (:func:`dit_fused_launches`)."""
     unet = {"extras_unet_64": 5, "extras_unet_32": 5, "extras_unet_16": 5}
     per_step = {
         "img2img": {k: 2 * (n + 2) for k, n in unet.items()},
@@ -4247,8 +4530,11 @@ def extras_launches() -> dict:
     kernel = {"extras_unet_64": "flash_fwd", "sr_16384": "flash_fwd",
               "t2i_joint": "flash_fwd", "extras_unet_32": "flash_single_kv",
               "extras_unet_16": "folded_fwd"}
-    return {name: {(kernel[s], s): EXTRAS_STEPS * n for s, n in sites.items()}
-            for name, sites in per_step.items()}
+    out = {name: {(kernel[s], s): EXTRAS_STEPS * n for s, n in sites.items()}
+           for name, sites in per_step.items()}
+    out["text2image"].update((k, EXTRAS_STEPS * n) for k, n in
+                             dit_fused_launches(8, 16, "t2i ").items())
+    return out
 
 
 def extras_sites(by_site: dict) -> dict:
@@ -4373,8 +4659,9 @@ def extras_faults(torch, sites: dict) -> dict:
 
 
 def extras_checks(torch, name: str, p: dict, site_qkv, sites: dict) -> list:
-    """The kernel route against the plain route for one pipeline, both in
-    f32 (its weights cast in place): the first K1 site's attention alone,
+    """The kernel route against the plain route (plain attention, the
+    DiT's plain passes) for one pipeline, both in f32 (its weights cast in
+    place): the first K1 site's attention alone,
     the denoiser's prediction and the image; then a K1, K6 or K2 with its
     logit scale 10% low in place of the real one, each of which some check
     must catch. Returns the problems."""
@@ -4391,10 +4678,12 @@ def extras_checks(torch, name: str, p: dict, site_qkv, sites: dict) -> list:
     torch.cuda.synchronize()
     f32_s = time.perf_counter() - t0
     set_attn_backend(p["modules"], "plain")
+    restore = plain_dit_passes()
     try:
         want = {"site": flash_attention_reference(q, k, v), "model": probe(),
                 "image": run()}
     finally:
+        restore()
         set_attn_backend(p["modules"], None)
     sound = {c: rel_norm(got[c], want[c]) for c in got}
     log(f"  {name}: f32 kernel route ({f32_s:.3f} s) vs plain route, "
@@ -4566,6 +4855,9 @@ def main(argv=None) -> int:
     rows += phase_short_kernels(torch, args.seed)
     header("the smoothing kernel against its plain version and the host route")
     rows += phase_smoothing(torch, args.seed)
+    header("the 2.0 DiT's fused norm, modulation, gate and GELU passes "
+           "against their plain versions")
+    rows += phase_dit_fused(torch, args.seed)
     header("main path: MotionPipeline.run, release width, bf16")
     evaluation: dict = {}
     launches = phase_pipeline(torch, args.seed, repo, evaluation)

@@ -12,7 +12,10 @@ final adaLN layer. Defaults are the release config (in 64, cond 1536, hidden
 its ``model`` state dict loads with ``load_state_dict``. Computation runs in
 the dtype of the parameters; the velocity comes back in f32. Attention goes
 through :func:`motion324_tpu_torch.ops.attention.multi_head_attention`: K1
-at the release shapes (1 881 tokens).
+at the release shapes (1 881 tokens). The QK-RMSNorm, the modulated norms,
+the gated residuals and the single blocks' GELU + concat go through
+:mod:`motion324_tpu_torch.ops.dit_fused`: one launch each on the card, the
+plain expressions elsewhere.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from torch import nn
 
 from motion324_tpu_torch.models.transformer import Linear
 from motion324_tpu_torch.ops.attention import multi_head_attention
+from motion324_tpu_torch.ops.dit_fused import (dit_gate, dit_gelu_cat,
+                                               dit_modulate, dit_rmsnorm)
 
 __all__ = ["Hunyuan3DDiT", "timestep_embedding"]
 
@@ -52,9 +57,7 @@ class _RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):
-        xf = x.float()
-        out = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + 1e-6)
-        return out.to(x.dtype) * self.scale.to(x.dtype)
+        return dit_rmsnorm(x, self.scale)
 
 
 class _QKNorm(nn.Module):
@@ -86,14 +89,6 @@ class _Modulation(nn.Module):
     def forward(self, vec):
         parts = self.lin(F.silu(vec))[:, None, :].chunk(self.mult, dim=-1)
         return parts[:3], (parts[3:] if self.mult == 6 else None)
-
-
-def _norm(x):
-    return F.layer_norm(x, x.shape[-1:], eps=1e-6)
-
-
-def _gelu(x):
-    return F.gelu(x, approximate="tanh")
 
 
 class _SelfAttention(nn.Module):
@@ -138,10 +133,10 @@ class DoubleStreamBlock(nn.Module):
             self.img_mod(vec)
         (tx1_shift, tx1_scale, tx1_gate), (tx2_shift, tx2_scale, tx2_gate) = \
             self.txt_mod(vec)
-        iq, ik, iv = self.img_attn.qkv_heads((1 + im1_scale) * _norm(img)
-                                             + im1_shift)
-        tq, tk, tv = self.txt_attn.qkv_heads((1 + tx1_scale) * _norm(txt)
-                                             + tx1_shift)
+        iq, ik, iv = self.img_attn.qkv_heads(
+            dit_modulate(img, im1_shift, im1_scale))
+        tq, tk, tv = self.txt_attn.qkv_heads(
+            dit_modulate(txt, tx1_shift, tx1_scale))
         # joint attention over [txt | img]
         attn = multi_head_attention(torch.cat([tq, iq], 1),
                                     torch.cat([tk, ik], 1),
@@ -151,12 +146,12 @@ class DoubleStreamBlock(nn.Module):
         lt = txt.shape[1]
         txt_attn, img_attn = attn[:, :lt], attn[:, lt:]
 
-        img = img + im1_gate * self.img_attn.proj(img_attn)
-        img = img + im2_gate * self.img_mlp((1 + im2_scale) * _norm(img)
-                                            + im2_shift)
-        txt = txt + tx1_gate * self.txt_attn.proj(txt_attn)
-        txt = txt + tx2_gate * self.txt_mlp((1 + tx2_scale) * _norm(txt)
-                                            + tx2_shift)
+        img = dit_gate(img, im1_gate, self.img_attn.proj(img_attn))
+        img = dit_gate(img, im2_gate, self.img_mlp(
+            dit_modulate(img, im2_shift, im2_scale)))
+        txt = dit_gate(txt, tx1_gate, self.txt_attn.proj(txt_attn))
+        txt = dit_gate(txt, tx2_gate, self.txt_mlp(
+            dit_modulate(txt, tx2_shift, tx2_scale)))
         return img, txt
 
 
@@ -176,16 +171,15 @@ class SingleStreamBlock(nn.Module):
         b, l, _ = x.shape
         hd = self.dim // self.num_heads
         (shift, scale, gate), _ = self.modulation(vec)
-        qkv, mlp = self.linear1((1 + scale) * _norm(x) + shift).split(
+        qkv, mlp = self.linear1(dit_modulate(x, shift, scale)).split(
             [3 * self.dim, self.mlp_dim], dim=-1)
         q, k, v = (t.reshape(b, l, self.num_heads, hd)
                    for t in qkv.chunk(3, dim=-1))
         attn = multi_head_attention(self.norm.query_norm(q),
                                     self.norm.key_norm(k), v,
                                     backend=self.attn_backend)
-        out = self.linear2(torch.cat([attn.reshape(b, l, self.dim),
-                                      _gelu(mlp)], dim=-1))
-        return x + gate * out
+        out = self.linear2(dit_gelu_cat(attn.reshape(b, l, self.dim), mlp))
+        return dit_gate(x, gate, out)
 
 
 class _LastLayer(nn.Module):
@@ -198,7 +192,7 @@ class _LastLayer(nn.Module):
 
     def forward(self, x, vec):
         shift, scale = self.adaLN_modulation(vec)[:, None, :].chunk(2, dim=-1)
-        return self.linear((1 + scale) * _norm(x) + shift)
+        return self.linear(dit_modulate(x, shift, scale))
 
 
 class Hunyuan3DDiT(nn.Module):

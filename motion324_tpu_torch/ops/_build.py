@@ -24,7 +24,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 KERNELS = ("flash_fwd", "flash_bwd", "folded_fwd", "folded_bwd",
            "flash_single_kv", "masked_flash", "rasterize", "short_fwd",
-           "short_bwd", "smooth_traj")
+           "short_bwd", "smooth_traj", "dit_fused")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
